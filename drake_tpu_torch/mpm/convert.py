@@ -1,0 +1,52 @@
+"""Conversion between the JAX package's MPM state/config (as numpy arrays and
+plain dicts) and the port's, so that both packages compute on the same state.
+
+The port never imports JAX: the caller turns a ``drake_tpu`` ``MpmState`` into
+numpy (``{f.name: np.asarray(getattr(s, f.name)) for f in fields(s)}``) and a
+config into a dict (``dataclasses.asdict(config)``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from drake_tpu_torch.mpm.solver import MpmConfig, MpmState
+
+_FLOAT_FIELDS = ("x", "v", "F", "C", "volume", "mass")
+
+
+def state_from_numpy(
+    arrays: Mapping[str, np.ndarray], device=None, dtype: torch.dtype = None
+) -> MpmState:
+    """MpmState from numpy arrays of the JAX ``MpmState`` fields (copied).
+    Float fields take `dtype` (default: keep the array's); ``dropped`` is
+    int32 and defaults to 0 when absent."""
+    floats = {
+        name: torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
+        for name in _FLOAT_FIELDS
+    }
+    dropped = torch.tensor(
+        np.asarray(arrays.get("dropped", 0)), dtype=torch.int32, device=device
+    )
+    return MpmState(**floats, dropped=dropped)
+
+
+def state_to_numpy(state: MpmState) -> dict:
+    """The inverse of ``state_from_numpy``: every field as a numpy array."""
+    return {
+        f.name: getattr(state, f.name).detach().cpu().numpy()
+        for f in dataclasses.fields(state)
+    }
+
+
+def config_from_reference(fields: Mapping) -> MpmConfig:
+    """MpmConfig from ``dataclasses.asdict`` of a JAX ``MpmConfig``."""
+    kw = dict(fields)
+    for name in ("grid_size", "gravity"):
+        if name in kw:
+            kw[name] = tuple(kw[name])
+    return MpmConfig(**kw)

@@ -1,0 +1,586 @@
+"""MLS-MPM: particle-grid transfers and grid dynamics on PyTorch + CUDA.
+
+Counterpart of drake_tpu/mpm/solver.py, function for function; the fork's
+GPU pipeline it re-derives is multibody/gpu_mpm/cuda_mpm_solver.cu
+(RebuildMapping, ParticleToGrid, UpdateGrid, GridToParticle).
+
+- Dense background grid, quadratic B-spline weights, APIC/MLS-MPM transfers
+  with the fused force B = -dt 4/dx^2 V0 P F^T + m C.
+- P2G: on CUDA the blocked path (sort by 4^3-cell block, fixed-size
+  active-block compaction, the K2 kernel per block, halo combine); on the
+  CPU the direct ``index_add_`` scatter.
+- Grid update: the K1 kernel on CUDA.
+- G2P: the 27-tap stencil gather in plain torch, or, in the fused
+  ``mpm_substep_blocked``, the K3 kernel over the same block sort.
+
+The substep makes no host sync: capacities are static (``MpmConfig``), the
+active-block compaction has a fixed size, and ``dropped`` stays a device
+tensor.  ``MpmConfig.xla_only`` is the explicit switch to the plain versions
+on the card; it is never set automatically.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from drake_tpu_torch.ops import mpm_kernels
+from drake_tpu_torch.ops.mpm_kernels import P2G_NODES, device_constant
+from drake_tpu_torch.utils.struct import tensor_dataclass
+
+
+@dataclasses.dataclass(frozen=True)
+class MpmConfig:
+    """Mirror of the fork's MpmConfigParams + settings.h compile-time config
+    (same fields as drake_tpu.mpm.solver.MpmConfig)."""
+
+    grid_size: Tuple[int, int, int] = (64, 64, 64)
+    dx: float = 1.0 / 64.0
+    dt: float = 1e-4
+    gravity: Tuple[float, float, float] = (0.0, 0.0, -9.81)
+    # Fixed-corotated material.
+    youngs_modulus: float = 4e5
+    poisson_ratio: float = 0.3
+    density: float = 1000.0
+    # Domain-wall boundary: sticky walls this many cells thick.
+    wall_width: int = 3
+    # Blocked-path static capacities (4^3-cell blocks): at most
+    # max_active_blocks touched blocks and block_capacity particles per
+    # block.  Overflow is reported in MpmState.dropped / GridState.dropped;
+    # size with `capacities_for(num_particles)`.
+    max_active_blocks: int = 256
+    block_capacity: int = 512
+    # Plain PyTorch versions instead of the CUDA kernels (scatter P2G, plain
+    # grid update and blocked transfers).  The CPU always takes them.
+    xla_only: bool = False
+
+    def capacities_for(self, num_particles: int, particles_per_cell: int = 8):
+        """Config copy with capacities sized for `num_particles` (assumes
+        near-dense seeding at `particles_per_cell`).
+
+        block_capacity gets 25% headroom over the dense 64-cells-per-block
+        count, because the base cell floor(x/dx - 0.5) shifts particles of a
+        block's lowest half-cell into the previous block.  max_active_blocks
+        is 4x the dense occupied-block count, rounded up to a power of two
+        and capped at 8192; the blocked transfers' cost is linear in it."""
+        dense_blocks = num_particles // (64 * particles_per_cell)
+        blocks_needed = max(64, 4 * dense_blocks)
+        a = 1
+        while a < blocks_needed:
+            a *= 2
+        dense = 64 * particles_per_cell
+        cap = ((dense + dense // 4 + 127) // 128) * 128
+        return dataclasses.replace(
+            self, max_active_blocks=min(a, 8192),
+            block_capacity=max(cap, self.block_capacity),
+        )
+
+    @property
+    def lame(self):
+        E, nu = self.youngs_modulus, self.poisson_ratio
+        mu = E / (2 * (1 + nu))
+        lam = E * nu / ((1 + nu) * (1 - 2 * nu))
+        return mu, lam
+
+
+def _zero_dropped():
+    return torch.zeros((), dtype=torch.int32)
+
+
+@tensor_dataclass
+class MpmState:
+    """Particle state (SoA, like GpuMpmState's particle buffers)."""
+
+    x: torch.Tensor  # (n, 3) positions
+    v: torch.Tensor  # (n, 3) velocities
+    F: torch.Tensor  # (n, 3, 3) deformation gradient
+    C: torch.Tensor  # (n, 3, 3) APIC affine velocity field
+    volume: torch.Tensor  # (n,) initial volume
+    mass: torch.Tensor  # (n,)
+    # Particles dropped by the blocked path's static capacities in the LAST
+    # substep (scalar int32 tensor on the state's device); nonzero means the
+    # capacities are undersized.
+    dropped: torch.Tensor = dataclasses.field(default_factory=_zero_dropped)
+
+
+def make_particle_block(
+    config: MpmConfig,
+    lower: Tuple[float, float, float],
+    upper: Tuple[float, float, float],
+    particles_per_cell: int = 8,
+    dtype: torch.dtype = torch.float32,
+    jitter_seed: Optional[int] = 0,
+    device: Union[str, torch.device, None] = None,
+) -> MpmState:
+    """Fill an axis-aligned box with particles (the sample initializer).
+
+    The positions are made in float64 by numpy exactly as the JAX package
+    makes them (same `default_rng(jitter_seed)` draws), then cast once, so
+    both packages start from bit-identical particles."""
+    lower = np.asarray(lower)
+    upper = np.asarray(upper)
+    spacing = config.dx / round(particles_per_cell ** (1 / 3))
+    axes = [np.arange(lo + spacing / 2, hi, spacing) for lo, hi in zip(lower, upper)]
+    pts = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+    if jitter_seed is not None:
+        rng = np.random.default_rng(jitter_seed)
+        pts = pts + rng.uniform(-0.2, 0.2, pts.shape) * spacing
+    n = pts.shape[0]
+    vol = spacing**3
+    mass = config.density * vol
+    kw = dict(dtype=dtype, device=device)
+    return MpmState(
+        x=torch.as_tensor(pts, **kw),
+        v=torch.zeros((n, 3), **kw),
+        F=torch.eye(3, **kw).expand(n, 3, 3).contiguous(),
+        C=torch.zeros((n, 3, 3), **kw),
+        volume=torch.full((n,), vol, **kw),
+        mass=torch.full((n,), mass, **kw),
+        dropped=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Quadratic B-spline stencil.
+# ---------------------------------------------------------------------------
+
+
+def _bspline_weights(xp, dx):
+    """Quadratic B-spline weights over the 3-cell stencil per axis.
+
+    Returns (base (n,3) int64, w (n,3,3)): w[:, axis, k] is the weight of
+    grid node base+k along `axis`."""
+    inv_dx = 1.0 / dx
+    pos = xp * inv_dx
+    base = torch.floor(pos - 0.5).long()
+    fx = pos - base.to(xp.dtype)  # in [0.5, 1.5]
+    w0 = 0.5 * (1.5 - fx) ** 2
+    w1 = 0.75 - (fx - 1.0) ** 2
+    w2 = 0.5 * (fx - 0.5) ** 2
+    return base, torch.stack([w0, w1, w2], dim=-1)  # (n, 3 axes, 3 taps)
+
+
+_STENCIL = tuple((i, j, k) for i in range(3) for j in range(3) for k in range(3))
+
+
+# ---------------------------------------------------------------------------
+# Constitutive model: fixed corotated (via Newton polar decomposition).
+# ---------------------------------------------------------------------------
+
+
+def _det3(A):
+    """Closed-form batched 3x3 determinant."""
+    return (
+        A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
+        - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
+        + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0])
+    )
+
+
+def _inv3(A, eps=1e-12):
+    """Closed-form (adjugate) batched 3x3 inverse; the determinant is pushed
+    away from zero by a signed `eps`."""
+    c00 = A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1]
+    c01 = A[..., 0, 2] * A[..., 2, 1] - A[..., 0, 1] * A[..., 2, 2]
+    c02 = A[..., 0, 1] * A[..., 1, 2] - A[..., 0, 2] * A[..., 1, 1]
+    c10 = A[..., 1, 2] * A[..., 2, 0] - A[..., 1, 0] * A[..., 2, 2]
+    c11 = A[..., 0, 0] * A[..., 2, 2] - A[..., 0, 2] * A[..., 2, 0]
+    c12 = A[..., 0, 2] * A[..., 1, 0] - A[..., 0, 0] * A[..., 1, 2]
+    c20 = A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]
+    c21 = A[..., 0, 1] * A[..., 2, 0] - A[..., 0, 0] * A[..., 2, 1]
+    c22 = A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
+    adj = torch.stack(
+        [
+            torch.stack([c00, c01, c02], dim=-1),
+            torch.stack([c10, c11, c12], dim=-1),
+            torch.stack([c20, c21, c22], dim=-1),
+        ],
+        dim=-2,
+    )
+    det = _det3(A)
+    return adj / torch.where(det >= 0, det + eps, det - eps)[..., None, None]
+
+
+def _polar_rotation(F, iters: int = 8):
+    """Rotation factor of F by Newton iteration R <- (R + R^-T)/2."""
+    R = F
+    for _ in range(iters):
+        R = 0.5 * (R + _inv3(R).transpose(-1, -2))
+    return R
+
+
+def fixed_corotated_stress(F, mu, lam):
+    """First Piola-Kirchhoff stress P = 2 mu (F - R) + lam (J - 1) J F^-T."""
+    R = _polar_rotation(F)
+    J = _det3(F)
+    F_inv_T = _inv3(F).transpose(-1, -2)
+    return 2.0 * mu * (F - R) + (lam * (J - 1.0) * J)[..., None, None] * F_inv_T
+
+
+# ---------------------------------------------------------------------------
+# The MLS-MPM substep.
+# ---------------------------------------------------------------------------
+
+
+class GridState(NamedTuple):
+    mass: torch.Tensor  # (nx, ny, nz)
+    momentum: torch.Tensor  # (nx, ny, nz, 3)
+    # Particles dropped by static block capacities this transfer (scalar
+    # int32 tensor; zero on the scatter path).
+    dropped: Union[torch.Tensor, int] = 0
+
+
+def particle_to_grid(config: MpmConfig, state: MpmState) -> GridState:
+    """APIC P2G with the MLS-MPM fused force.
+
+    Device dispatch: CUDA tensors take the blocked path (K2); CPU tensors,
+    or ``config.xla_only``, the direct scatter."""
+    if config.xla_only or state.x.device.type == "cpu":
+        return particle_to_grid_scatter(config, state)
+    return particle_to_grid_blocked(config, state)
+
+
+def _p2g_affine(config: MpmConfig, state: MpmState):
+    """Fused APIC+stress affine matrix B = -dt 4/dx^2 V0 P F^T + m C."""
+    mu, lam = config.lame
+    P = fixed_corotated_stress(state.F, mu, lam)
+    stress_B = (-config.dt * 4.0 / config.dx**2) * state.volume[:, None, None] * (
+        P @ state.F.transpose(-1, -2)
+    )
+    return stress_B + state.mass[:, None, None] * state.C
+
+
+class BlockSort(NamedTuple):
+    """The block sort shared by the blocked P2G and G2P."""
+
+    packed: torch.Tensor  # (n, 40) rows in block-sorted order
+    perm: torch.Tensor  # (n,) sorted row -> particle
+    bid: torch.Tensor  # (n,) block id of each particle (unsorted order)
+    active: torch.Tensor  # (A,) ascending block ids, sentinel nblocks last
+    starts: torch.Tensor  # (A,) int32 first sorted row of each block
+    counts: torch.Tensor  # (A,) int32 rows of each block taken (<= PMAX)
+    dropped: torch.Tensor  # () int32 particles left out by the capacities
+
+
+def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
+    """Pack each particle's P2G/G2P inputs into one 40-column row, sort the
+    rows by 4^3-cell block, and compact the active blocks to a fixed size
+    (the RebuildMapping + touched-block compaction role).
+
+    On the blocked paths the base cell is clipped to n-3 per axis (so the
+    6^3 window stays in the grid) while the weights come from the unclipped
+    base."""
+    dx = config.dx
+    dtype = state.x.dtype
+    dev = state.x.device
+    n = state.x.shape[0]
+    nx, ny, nz = config.grid_size
+    if nx % 4 or ny % 4 or nz % 4:
+        raise ValueError(f"grid dims must be multiples of 4, got {config.grid_size}")
+    nby, nbz = ny // 4, nz // 4
+    nblocks = (nx // 4) * nby * nbz
+    A = config.max_active_blocks
+    PMAX = config.block_capacity
+
+    affine = _p2g_affine(config, state)
+    base, w = _bspline_weights(state.x, dx)
+    hi = device_constant((nx - 3, ny - 3, nz - 3), torch.int64, dev)
+    base = torch.minimum(base.clamp_min(0), hi)
+    # u = m v + B(x_node - x_p) split into u0 = m v - B x_p and + B x_node.
+    u0 = state.mass[:, None] * state.v - torch.einsum("nij,nj->ni", affine, state.x)
+    bxyz = base // 4
+    bid = (bxyz[:, 0] * nby + bxyz[:, 1]) * nbz + bxyz[:, 2]
+    lb_local = base - 4 * bxyz  # 0..3
+
+    packed = torch.cat(
+        [
+            state.mass[:, None], u0, affine.reshape(n, 9),
+            torch.zeros((n, 3), dtype=dtype, device=dev),
+            w.reshape(n, 9), lb_local.to(dtype), state.x, state.F.reshape(n, 9),
+        ],
+        dim=1,
+    )
+    # The order within a block only changes the order of summation; a stable
+    # sort makes it reproducible.
+    bid_s, perm = torch.sort(bid, stable=True)
+    packed_s = packed[perm]
+
+    # Fixed-size compaction (jnp.unique(size=A, fill_value=nblocks)): the
+    # first A distinct block ids in ascending order, then the sentinel.
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = bid_s[1:] != bid_s[:-1]
+    rank = torch.cumsum(first, 0) - 1
+    slot = torch.where(first & (rank < A), rank, A)
+    active = torch.full((A + 1,), nblocks, dtype=bid_s.dtype, device=dev)
+    active.scatter_(0, slot, bid_s)
+    active = active[:A]
+    starts = torch.searchsorted(bid_s, active, right=False)
+    ends = torch.searchsorted(bid_s, active, right=True)
+    counts = torch.clamp(ends - starts, max=PMAX)
+    # Sentinel entries cover no particle.
+    counts = torch.where(active < nblocks, counts, 0)
+    dropped = (n - counts.sum()).to(torch.int32)
+    return BlockSort(
+        packed=packed_s, perm=perm, bid=bid, active=active,
+        starts=starts.to(torch.int32), counts=counts.to(torch.int32),
+        dropped=dropped,
+    )
+
+
+def window_node_pos(config: MpmConfig, active, dtype):
+    """(A, 216, 3) world positions of each active block's 6^3 window nodes,
+    node l = (i*6+j)*6+k at grid index 4*block + (i, j, k)."""
+    _, ny, nz = config.grid_size
+    nby, nbz = ny // 4, nz // 4
+    ablock = torch.stack(
+        [active // (nbz * nby), (active // nbz) % nby, active % nbz], dim=1
+    )
+    l_range = torch.arange(6, device=active.device)
+    ll = torch.stack(
+        torch.meshgrid(l_range, l_range, l_range, indexing="ij"), dim=-1
+    ).reshape(P2G_NODES, 3)
+    return (4 * ablock[:, None, :] + ll[None, :, :]).to(dtype) * config.dx
+
+
+def _combine(T, block_axis, local_axis, nb):
+    """Halo combine along one axis: window row l of block b lands on grid
+    index 4b + l; rows 4 and 5 spill into block b+1's rows 0 and 1."""
+    core = T.movedim((block_axis, local_axis), (0, 1))
+    res = core[:, 0:4].clone()
+    res[1:, 0] += core[:-1, 4]
+    res[1:, 1] += core[:-1, 5]
+    return res.reshape((nb * 4,) + core.shape[2:]).movedim(0, block_axis)
+
+
+def _grid_from_blocks(config: MpmConfig, sort: BlockSort, out, node_pos) -> GridState:
+    """Turn the K2 output (A, 16, 216) into the dense grid: add B x_node to
+    the momentum, place each active block's window, combine the halos."""
+    nx, ny, nz = config.grid_size
+    nbx, nby, nbz = nx // 4, ny // 4, nz // 4
+    nblocks = nbx * nby * nbz
+    A = sort.active.shape[0]
+    M_blk = out[:, 0, :]
+    U_blk = out[:, 1:4, :].transpose(1, 2)  # (A, 216, 3)
+    C_blk = out[:, 4:13, :].transpose(1, 2).reshape(A, P2G_NODES, 3, 3)
+    mom_blk = U_blk + torch.einsum("alij,alj->ali", C_blk, node_pos)
+    # Active ids are unique; sentinel entries (all zero) go to the extra row.
+    T = torch.zeros((nblocks + 1, P2G_NODES, 4), dtype=out.dtype, device=out.device)
+    T.index_add_(
+        0, sort.active.clamp(max=nblocks),
+        torch.cat([M_blk[..., None], mom_blk], dim=-1),
+    )
+    T = T[:-1].reshape(nbx, nby, nbz, 6, 6, 6, 4)
+    Tx = _combine(T, 0, 3, nbx)  # (nx, nby, nbz, 6, 6, 4)
+    Ty = _combine(Tx, 1, 3, nby)  # (nx, ny, nbz, 6, 4)
+    Tz = _combine(Ty, 2, 3, nbz)  # (nx, ny, nz, 4)
+    return GridState(mass=Tz[..., 0], momentum=Tz[..., 1:], dropped=sort.dropped)
+
+
+def particle_to_grid_blocked(config: MpmConfig, state: MpmState) -> GridState:
+    """Scatter-free P2G: block sort, K2 per active block, halo combine.
+
+    Particles beyond config.block_capacity in a block, or outside the first
+    config.max_active_blocks blocks, are dropped and counted."""
+    sort = sort_particles(config, state)
+    out = mpm_kernels.p2g_block(
+        sort.packed, sort.starts, sort.counts, config.block_capacity,
+        plain=config.xla_only,
+    )
+    node_pos = window_node_pos(config, sort.active, state.x.dtype)
+    return _grid_from_blocks(config, sort, out, node_pos)
+
+
+def particle_to_grid_scatter(config: MpmConfig, state: MpmState) -> GridState:
+    """Direct scatter-add P2G (the oracle): ``index_add_`` of the 27-tap
+    stencil into a flat grid with one extra bucket for out-of-domain taps."""
+    dx = config.dx
+    dtype = state.x.dtype
+    dev = state.x.device
+    nx, ny, nz = config.grid_size
+
+    affine = _p2g_affine(config, state)
+    base, w = _bspline_weights(state.x, dx)
+    offsets = device_constant(_STENCIL, torch.int64, dev)  # (27, 3)
+    idx = base[:, None, :] + offsets[None, :, :]  # (n, 27, 3)
+    weight = (
+        w[:, 0, offsets[:, 0]] * w[:, 1, offsets[:, 1]] * w[:, 2, offsets[:, 2]]
+    )  # (n, 27)
+    dpos = (idx.to(dtype) - state.x[:, None, :] / dx) * dx  # (n, 27, 3)
+    mom = weight[..., None] * (
+        (state.mass[:, None] * state.v)[:, None, :]
+        + torch.einsum("nij,ntj->nti", affine, dpos)
+    )  # (n, 27, 3)
+    m_scatter = weight * state.mass[:, None]  # (n, 27)
+
+    flat = (idx[..., 0] * ny + idx[..., 1]) * nz + idx[..., 2]  # (n, 27)
+    in_bounds = (
+        (idx[..., 0] >= 0) & (idx[..., 0] < nx)
+        & (idx[..., 1] >= 0) & (idx[..., 1] < ny)
+        & (idx[..., 2] >= 0) & (idx[..., 2] < nz)
+    )
+    flat = torch.where(in_bounds, flat, nx * ny * nz).reshape(-1)
+    size = nx * ny * nz + 1
+    grid_m = torch.zeros((size,), dtype=dtype, device=dev)
+    grid_m.index_add_(0, flat, m_scatter.reshape(-1))
+    grid_p = torch.zeros((size, 3), dtype=dtype, device=dev)
+    grid_p.index_add_(0, flat, mom.reshape(-1, 3))
+    return GridState(
+        mass=grid_m[:-1].reshape(nx, ny, nz),
+        momentum=grid_p[:-1].reshape(nx, ny, nz, 3),
+        dropped=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def update_grid(config: MpmConfig, grid: GridState) -> torch.Tensor:
+    """Momentum -> velocity, gravity (active nodes), domain-wall BCs, through
+    K1 on CUDA.  Returns grid velocities (nx, ny, nz, 3)."""
+    mom = grid.momentum.movedim(-1, 0).contiguous()  # (3, nx, ny, nz)
+    vel = mpm_kernels.update_grid(
+        grid.mass.contiguous(), mom, config.dt, config.gravity, config.wall_width,
+        plain=config.xla_only,
+    )
+    return vel.movedim(0, -1)
+
+
+def grid_to_particle(
+    config: MpmConfig, state: MpmState, grid_vel: torch.Tensor
+) -> MpmState:
+    """G2P gather: new particle velocity, APIC C, F update, advection.
+
+    C = 4/dx^2 sum_i w_i v_i dpos_i^T, F <- (I + dt C) F, x <- x + dt v."""
+    dx, dt = config.dx, config.dt
+    dtype = state.x.dtype
+    dev = state.x.device
+    nx, ny, nz = config.grid_size
+    base, w = _bspline_weights(state.x, dx)
+    flat_vel = grid_vel.reshape(-1, 3)
+
+    v_new = torch.zeros_like(state.v)
+    C_new = torch.zeros_like(state.C)
+    hi = device_constant((nx - 1, ny - 1, nz - 1), torch.int64, dev)
+    offsets = device_constant(_STENCIL, torch.int64, dev)
+    for t, (i, j, k) in enumerate(_STENCIL):
+        idx = base + offsets[t]
+        # Mask out-of-domain taps (negative indices would wrap); gather with
+        # clamped indices.
+        valid = ((idx >= 0) & (idx <= hi)).all(dim=-1)
+        idx_c = torch.minimum(idx.clamp_min(0), hi)
+        weight = w[:, 0, i] * w[:, 1, j] * w[:, 2, k] * valid.to(dtype)
+        dpos = (idx.to(dtype) - state.x / dx) * dx
+        vi = flat_vel[(idx_c[:, 0] * ny + idx_c[:, 1]) * nz + idx_c[:, 2]]
+        v_new = v_new + weight[:, None] * vi
+        C_new = C_new + (4.0 / dx**2) * weight[:, None, None] * (
+            vi[:, :, None] * dpos[:, None, :]
+        )
+
+    F_new = (torch.eye(3, dtype=dtype, device=dev) + dt * C_new) @ state.F
+    x_new = state.x + dt * v_new
+    return state.replace(x=x_new, v=v_new, F=F_new, C=C_new)
+
+
+def block_windows(grid_field, nbx, nby, nbz):
+    """All 6^3 block windows by strided slicing (no gathers).
+
+    grid_field: (nx, ny, nz, c) -> (nblocks, 216, c) where row (b, l) is
+    grid[4bx+lx, 4by+ly, 4bz+lz] (zero past the grid's upper faces)."""
+    c = grid_field.shape[-1]
+    padded = torch.nn.functional.pad(grid_field, (0, 0, 0, 8, 0, 8, 0, 8))
+
+    def axis_stack(f, nb, axis):
+        # (..., nb, 6, ...): slice l::4 along `axis`, stacked on a new axis.
+        lead = (slice(None),) * axis
+        return torch.stack(
+            [f[lead + (slice(l, l + 4 * nb, 4),)] for l in range(6)], dim=axis + 1
+        )
+
+    T = axis_stack(padded, nbx, 0)  # (nbx, 6, ny+8, nz+8, c)
+    T = axis_stack(T, nby, 2)  # (nbx, 6, nby, 6, nz+8, c)
+    T = axis_stack(T, nbz, 4)  # (nbx, 6, nby, 6, nbz, 6, c)
+    T = T.permute(0, 2, 4, 1, 3, 5, 6)
+    return T.reshape(nbx * nby * nbz, P2G_NODES, c)
+
+
+def block_velocity_windows(config: MpmConfig, grid_vel, active, node_pos):
+    """K3's input: each active block's 216-node velocity window, extended
+    with v * node channels so that one contraction yields both v_p and
+    sum_l w v n^T.  Returns (A, 216, 12) [v, v n_x, v n_y, v n_z]; sentinel
+    entries get a zero window."""
+    nx, ny, nz = config.grid_size
+    nbx, nby, nbz = nx // 4, ny // 4, nz // 4
+    win_all = block_windows(grid_vel, nbx, nby, nbz)  # (nblocks, 216, 3)
+    zero = torch.zeros((1, P2G_NODES, 3), dtype=grid_vel.dtype, device=grid_vel.device)
+    win = torch.cat([win_all, zero])[active.clamp(max=nbx * nby * nbz)]
+    return torch.cat(
+        [win, win * node_pos[..., 0:1], win * node_pos[..., 1:2],
+         win * node_pos[..., 2:3]],
+        dim=-1,
+    ).contiguous()
+
+
+def mpm_substep(config: MpmConfig, state: MpmState) -> MpmState:
+    """One explicit MLS-MPM substep: P2G -> grid update -> stencil G2P."""
+    grid = particle_to_grid(config, state)
+    grid_vel = update_grid(config, grid)
+    out = grid_to_particle(config, state, grid_vel)
+    return out.replace(dropped=grid.dropped)
+
+
+def mpm_substep_blocked(config: MpmConfig, state: MpmState) -> MpmState:
+    """Fused blocked substep: ONE block sort shared by P2G (K2) and G2P (K3),
+    the grid update (K1) between them, windows by strided slicing, and an
+    unsort back to particle order.  Particles dropped by the capacities keep
+    their old state."""
+    dx, dt = config.dx, config.dt
+    dtype = state.x.dtype
+    n = state.x.shape[0]
+    A = config.max_active_blocks
+    PMAX = config.block_capacity
+
+    sort = sort_particles(config, state)
+    out = mpm_kernels.p2g_block(
+        sort.packed, sort.starts, sort.counts, PMAX, plain=config.xla_only
+    )
+    node_pos = window_node_pos(config, sort.active, dtype)
+    grid = _grid_from_blocks(config, sort, out, node_pos)
+    grid_vel = update_grid(config, grid)  # (nx, ny, nz, 3)
+
+    vel_ext = block_velocity_windows(config, grid_vel, sort.active, node_pos)
+    out_p = mpm_kernels.g2p_block(
+        sort.packed, vel_ext, sort.starts, sort.counts, PMAX, 4.0 / dx**2, dt,
+        plain=config.xla_only,
+    )  # (A, PMAX, 24): x_new, v_new, F_new, C_new
+
+    # Unsort: particle i sits at sorted row invperm[i], slot invperm[i] -
+    # starts[a] of its block a.
+    invperm = torch.empty_like(sort.perm)
+    invperm[sort.perm] = torch.arange(n, device=invperm.device)
+    a_i = torch.searchsorted(sort.active, sort.bid)
+    a_c = a_i.clamp(0, A - 1)
+    slot = invperm - sort.starts[a_c]
+    covered = (
+        (a_i < A)
+        & (sort.active[a_c] == sort.bid)
+        & (slot >= 0)
+        & (slot < sort.counts[a_c])
+    )
+    row = a_c * PMAX + slot.clamp(0, PMAX - 1)
+    got = out_p.reshape(A * PMAX, mpm_kernels.G2P_OUT)[row]
+    cov = covered[:, None]
+    return state.replace(
+        x=torch.where(cov, got[:, 0:3], state.x),
+        v=torch.where(cov, got[:, 3:6], state.v),
+        F=torch.where(cov[..., None], got[:, 6:15].reshape(n, 3, 3), state.F),
+        C=torch.where(cov[..., None], got[:, 15:24].reshape(n, 3, 3), state.C),
+        dropped=sort.dropped,
+    )
+
+
+def simulate(config: MpmConfig, state: MpmState, num_substeps: int) -> MpmState:
+    """Rollout of `num_substeps` substeps (the JAX package's lax.scan as a
+    Python loop; no host sync inside)."""
+    for _ in range(num_substeps):
+        state = mpm_substep(config, state)
+    return state

@@ -1,0 +1,284 @@
+"""Kernels of the MPM substep: hand-written CUDA for Hopper, and beside each
+its plain PyTorch version (counterpart of drake_tpu.ops.mpm_kernels).
+
+Each public function dispatches on the device of its tensors:
+
+- CPU tensors, or ``plain=True`` (``MpmConfig.xla_only``), take the plain
+  version: the CPU path, and the oracle the kernel is checked against.
+- CUDA tensors launch the kernel from ``csrc/mpm_kernels.cu`` or raise; there
+  is no fallback.
+
+Every launch adds one to ``LAUNCHES[name]``, so a run can show that its path
+went through the kernels.
+
+The packed particle row keeps the JAX package's column meaning but is 40
+wide instead of 128 (no TPU lane padding): 0:16 values [m, u0 (3), B (9),
+pad (3)], 16:25 B-spline taps, 25:28 local base, 28:31 x, 31:40 F.  The TPU's
+8-row DMA alignment (``align_starts``/``align_window``), its custom_vmap batch
+folding and the MXU weight factorisation have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from drake_tpu_torch.ops import _build
+
+P2G_NV = 16  # value channels: [mass, u0(3), B(9), pad(3)]
+P2G_NODES = 216  # 6^3 block-window nodes
+G2P_VEL_CH = 12  # [v(3), v*node_x(3), v*node_y(3), v*node_z(3)]
+G2P_OUT = 24  # [x_new(3), v_new(3), F_new(9), C_new(9)]
+PACKED_COLS = 40
+
+LAUNCHES = {"update_grid": 0, "p2g_block": 0, "g2p_block": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device):
+    """A small constant tensor, made once per (values, dtype, device).
+
+    ``torch.tensor(..., device="cuda")`` copies from the host and waits for
+    the stream; caching keeps such copies out of the substep loop, which
+    then makes no host sync.  Callers must not write to the result."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _check(name, t, dtype=torch.float32, shape=None, device=None):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _raise_on_error(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed (cudaError_t {rc})")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: grid update.
+# ---------------------------------------------------------------------------
+
+
+def update_grid_reference(mass, momentum, dt, gravity, wall_width):
+    """Plain version.  mass: (nx, ny, nz); momentum: (3, nx, ny, nz).
+    Returns the velocity (3, nx, ny, nz): p / m on nodes with mass (else 0),
+    plus dt * g on nodes with mass, zeroed within `wall_width` of each face."""
+    g = device_constant(tuple(gravity), momentum.dtype, momentum.device)
+    m = mass[None]
+    active = m > 0
+    vel = torch.where(active, momentum / m.clamp_min(1e-12), 0.0)
+    vel = vel + dt * g[:, None, None, None] * active
+    w = wall_width
+    _, nx, ny, nz = momentum.shape
+    dev = momentum.device
+    ii = torch.arange(nx, device=dev)[:, None, None]
+    jj = torch.arange(ny, device=dev)[None, :, None]
+    kk = torch.arange(nz, device=dev)[None, None, :]
+    inside = (
+        (ii >= w) & (ii < nx - w)
+        & (jj >= w) & (jj < ny - w)
+        & (kk >= w) & (kk < nz - w)
+    )
+    return torch.where(inside[None], vel, 0.0)
+
+
+def update_grid_cuda(mass, momentum, dt, gravity, wall_width):
+    """Launch K1 (``update_grid_kernel``) on CUDA float32 tensors."""
+    nx, ny, nz = mass.shape
+    _check("mass", mass)
+    _check("momentum", momentum, shape=(3, nx, ny, nz), device=mass.device)
+    vel = torch.empty_like(momentum)
+    if mass.numel() == 0:
+        return vel
+    lib = _build.load_library()
+    gx, gy, gz = (float(g) for g in gravity)
+    with torch.cuda.device(mass.device):
+        rc = lib.mpm_update_grid(
+            mass.data_ptr(), momentum.data_ptr(), vel.data_ptr(),
+            nx, ny, nz, float(dt), gx, gy, gz, int(wall_width),
+            _stream(mass.device),
+        )
+    _raise_on_error("update_grid", rc)
+    LAUNCHES["update_grid"] += 1
+    return vel
+
+
+def update_grid(mass, momentum, dt, gravity, wall_width, plain=False):
+    """Dispatcher: the plain version for CPU tensors or ``plain=True``,
+    the K1 kernel for CUDA tensors."""
+    if plain or mass.device.type == "cpu":
+        return update_grid_reference(mass, momentum, dt, gravity, wall_width)
+    return update_grid_cuda(mass, momentum, dt, gravity, wall_width)
+
+
+# ---------------------------------------------------------------------------
+# Plain blocked transfers: gather each block's sorted rows into a
+# (A, pmax, ...) table and build the tensor-product weights over the block's
+# 6^3 window as a one-hot product.
+# ---------------------------------------------------------------------------
+
+
+def _gather_blocks(packed, starts, counts, pmax):
+    """Rows [starts[a], starts[a] + pmax) of `packed` (clipped to the array)
+    and the mask of the first counts[a] of them."""
+    n = packed.shape[0]
+    s_idx = torch.arange(pmax, device=packed.device)
+    pidx = (starts.long()[:, None] + s_idx[None, :]).clamp(0, n - 1)
+    valid = (s_idx[None, :] < counts.long()[:, None]).to(packed.dtype)
+    return packed[pidx], valid
+
+
+def _window_weights(pk, valid):
+    """(A, pmax, 216) weights W[a, p, (i*6+j)*6+k] = wx_i wy_j wz_k of each
+    particle at each window node, zero for invalid slots."""
+    A, pmax = valid.shape
+    lbb = pk[..., 25:28].long()
+    wb = pk[..., 16:25].reshape(A, pmax, 3, 3)
+    l_range = torch.arange(6, device=pk.device)
+
+    def axis_onehot(axis):
+        acc = torch.zeros((A, pmax, 6), dtype=pk.dtype, device=pk.device)
+        for t in range(3):
+            mask = l_range[None, None, :] == (lbb[..., axis] + t)[..., None]
+            acc = acc + mask.to(pk.dtype) * wb[..., axis, t][..., None]
+        return acc
+
+    wx, wy, wz = axis_onehot(0), axis_onehot(1), axis_onehot(2)
+    W = (
+        wx[:, :, :, None, None]
+        * wy[:, :, None, :, None]
+        * wz[:, :, None, None, :]
+    ).reshape(A, pmax, P2G_NODES)
+    return W * valid[..., None]
+
+
+# ---------------------------------------------------------------------------
+# K2: blocked P2G.
+# ---------------------------------------------------------------------------
+
+
+def p2g_block_reference(packed, starts, counts, pmax: int):
+    """Plain version.  packed: (n, >=28) block-sorted rows; starts, counts:
+    (A,).  Returns (A, 16, 216): for each block, the sum over its particles of
+    the 16 value channels times each window node's B-spline weight."""
+    pk, valid = _gather_blocks(packed, starts, counts, pmax)
+    Vb = pk[..., 0:P2G_NV] * valid[..., None]
+    return torch.einsum("apv,apl->avl", Vb, _window_weights(pk, valid))
+
+
+def p2g_block_cuda(packed, starts, counts, pmax: int):
+    """Launch K2 (``p2g_block_kernel``).  packed: (n, >=28) float32; starts,
+    counts: (A,) int32.  Channels 0:13 as the plain version; the pad channels
+    13:16 are written 0 (the solver's packed rows carry zeros there)."""
+    A = starts.shape[0]
+    _check("packed", packed)
+    if packed.dim() != 2 or packed.shape[1] < 28:
+        raise ValueError(f"packed: expected (n, >=28), got {tuple(packed.shape)}")
+    _check("starts", starts, torch.int32, (A,), packed.device)
+    _check("counts", counts, torch.int32, (A,), packed.device)
+    out = torch.empty((A, P2G_NV, P2G_NODES), dtype=torch.float32, device=packed.device)
+    if A == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(packed.device):
+        rc = lib.mpm_p2g_block(
+            packed.data_ptr(), packed.shape[0], packed.shape[1],
+            starts.data_ptr(), counts.data_ptr(), A, int(pmax),
+            out.data_ptr(), _stream(packed.device),
+        )
+    _raise_on_error("p2g_block", rc)
+    LAUNCHES["p2g_block"] += 1
+    return out
+
+
+def p2g_block(packed, starts, counts, pmax: int, plain=False):
+    """Dispatcher: plain version for CPU tensors or ``plain=True``, K2 for
+    CUDA tensors."""
+    if plain or packed.device.type == "cpu":
+        return p2g_block_reference(packed, starts, counts, pmax)
+    return p2g_block_cuda(packed, starts, counts, pmax)
+
+
+# ---------------------------------------------------------------------------
+# K3: blocked G2P.
+# ---------------------------------------------------------------------------
+
+
+def g2p_block_reference(packed, vel_ext, starts, counts, pmax: int, dxi2, dt):
+    """Plain version.  packed: (n, 40) block-sorted rows; vel_ext:
+    (A, 216, >=12) per-block node channels [v, v*n_x, v*n_y, v*n_z].
+    Returns (A, pmax, 24): block a's particle s at slot s with columns
+    0:3 x_new, 3:6 v_new, 6:15 F_new, 15:24 C_new; slots past counts[a] are
+    zero."""
+    pk, valid = _gather_blocks(packed, starts, counts, pmax)
+    A = valid.shape[0]
+    W = _window_weights(pk, valid)
+    g2p = torch.einsum("apl,alv->apv", W, vel_ext[..., :G2P_VEL_CH])
+    v_new = g2p[..., 0:3]
+    # channel 3 + 3a + i = sum_l w v_i n_a; C[i][j] needs (i, a), hence the
+    # transpose.
+    wvn = g2p[..., 3:12].reshape(A, pmax, 3, 3)
+    x_p = pk[..., 28:31]
+    C_new = dxi2 * (wvn.transpose(-1, -2) - v_new[..., :, None] * x_p[..., None, :])
+    F_p = pk[..., 31:40].reshape(A, pmax, 3, 3)
+    eye = torch.eye(3, dtype=pk.dtype, device=pk.device)
+    F_new = (eye + dt * C_new) @ F_p
+    x_new = x_p + dt * v_new
+    out = torch.cat(
+        [x_new, v_new, F_new.reshape(A, pmax, 9), C_new.reshape(A, pmax, 9)],
+        dim=-1,
+    )
+    return out * valid[..., None]
+
+
+def g2p_block_cuda(packed, vel_ext, starts, counts, pmax: int, dxi2, dt):
+    """Launch K3 (``g2p_block_kernel``).  packed: (n, >=40) float32; vel_ext:
+    (A, 216, 12) float32; starts, counts: (A,) int32.  Layout as the plain
+    version."""
+    A = starts.shape[0]
+    _check("packed", packed)
+    if packed.dim() != 2 or packed.shape[1] < PACKED_COLS:
+        raise ValueError(f"packed: expected (n, >=40), got {tuple(packed.shape)}")
+    _check("vel_ext", vel_ext, shape=(A, P2G_NODES, G2P_VEL_CH), device=packed.device)
+    _check("starts", starts, torch.int32, (A,), packed.device)
+    _check("counts", counts, torch.int32, (A,), packed.device)
+    out = torch.empty((A, pmax, G2P_OUT), dtype=torch.float32, device=packed.device)
+    if A == 0 or pmax == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(packed.device):
+        rc = lib.mpm_g2p_block(
+            packed.data_ptr(), packed.shape[0], packed.shape[1],
+            vel_ext.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            A, int(pmax), float(dxi2), float(dt), out.data_ptr(),
+            _stream(packed.device),
+        )
+    _raise_on_error("g2p_block", rc)
+    LAUNCHES["g2p_block"] += 1
+    return out
+
+
+def g2p_block(packed, vel_ext, starts, counts, pmax: int, dxi2, dt, plain=False):
+    """Dispatcher: plain version for CPU tensors or ``plain=True``, K3 for
+    CUDA tensors."""
+    if plain or packed.device.type == "cpu":
+        return g2p_block_reference(packed, vel_ext, starts, counts, pmax, dxi2, dt)
+    return g2p_block_cuda(packed, vel_ext, starts, counts, pmax, dxi2, dt)

@@ -1,0 +1,48 @@
+"""Frozen tensor dataclasses: the PyTorch counterpart of drake_tpu.utils.struct.
+
+The JAX package registers frozen dataclasses as pytrees so that state flows
+through jitted functions.  PyTorch runs eagerly, so the port needs no pytree
+registration: a frozen dataclass whose fields are tensors, with ``.replace()``
+for functional updates and ``.to(device)`` to move every tensor field at once.
+Fields marked ``static_field()`` are plain Python metadata and are never moved.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import TypeVar
+
+import torch
+
+_T = TypeVar("_T")
+
+
+def tensor_dataclass(cls: type[_T]) -> type[_T]:
+    """Decorator: frozen dataclass with ``replace`` and ``to`` methods."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+
+    def _replace(self, **updates):
+        return dataclasses.replace(self, **updates)
+
+    def _to(self, device=None, dtype=None):
+        """Move every tensor field to `device`; floating fields also take
+        `dtype` (integer fields such as counters keep theirs)."""
+        updates = {}
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if f.metadata.get("static", False) or not isinstance(value, torch.Tensor):
+                continue
+            cast = dtype if value.is_floating_point() else None
+            updates[f.name] = value.to(device=device, dtype=cast)
+        return dataclasses.replace(self, **updates)
+
+    cls.replace = _replace
+    cls.to = _to
+    return cls
+
+
+def static_field(**kwargs):
+    """A dataclass field that ``to()`` leaves alone (Python metadata)."""
+    metadata = dict(kwargs.pop("metadata", {}))
+    metadata["static"] = True
+    return dataclasses.field(metadata=metadata, **kwargs)

@@ -42,8 +42,14 @@ setup(
         "TPU-native model-based control / trajectory optimization / MPM "
         "framework (JAX/XLA/Pallas) with the capabilities of g1n0st/drake"
     ),
-    packages=find_packages(include=["drake_tpu", "drake_tpu.*"]),
-    package_data={"drake_tpu.io": ["native/*.cpp", "native/*.so"]},
+    packages=find_packages(
+        include=["drake_tpu", "drake_tpu.*", "drake_tpu_torch", "drake_tpu_torch.*"]
+    ),
+    package_data={
+        "drake_tpu.io": ["native/*.cpp", "native/*.so"],
+        # The PyTorch port's CUDA sources, built with nvcc at first use.
+        "drake_tpu_torch.ops": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pyyaml"],
     cmdclass={"build_native": BuildNative},
