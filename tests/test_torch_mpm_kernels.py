@@ -13,20 +13,40 @@ dxi2 (sum w v n - v x) is a difference of terms of size dxi2 |v| |x| (x in
 the unit domain), so its columns are held to the tolerance times
 dxi2 max|v|.
 
-torch and the port are imported when a test here runs, not when pytest
-collects this file: every pytest-xdist worker imports every test file, and a
-worker that runs only JAX tests then never loads torch beside jaxlib.
+torch, the port and the JAX package's Pallas module are imported when a
+test here runs, not when pytest collects this file: every pytest-xdist worker
+imports every test file, and a worker that runs only other JAX tests then
+loads neither torch nor Pallas (whose Mosaic extensions stay in the process
+for the rest of the run).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drake_tpu.ops import mpm_kernels as jmk
-
 TOL = {np.float64: 1e-10, np.float32: 1e-5}
 DXI2, DT = 1e3, 1e-4
 DTYPES = [np.float64, np.float32]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch on one thread while these tests run: pytest-xdist runs several
+    workers on the same cores, and torch's default of one thread per core
+    then oversubscribes them and slows these tests several-fold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jmk():
+    from drake_tpu.ops import mpm_kernels
+
+    return mpm_kernels
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +89,7 @@ def _blocks():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_update_grid_matches_jax(tmk, dtype):
+def test_update_grid_matches_jax(jmk, tmk, dtype):
     rng = np.random.default_rng(0)
     shape = (32, 32, 32)
     mass = rng.uniform(0.0, 2.0, shape)
@@ -84,7 +104,7 @@ def test_update_grid_matches_jax(tmk, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_p2g_block_matches_jax_reference(tmk, dtype):
+def test_p2g_block_matches_jax_reference(jmk, tmk, dtype):
     rng = np.random.default_rng(1)
     n, pmax, starts, counts = _blocks()
     packed = _random_packed(rng, n, dtype)
@@ -101,7 +121,7 @@ def test_p2g_block_matches_jax_reference(tmk, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_g2p_block_matches_jax_reference(tmk, dtype):
+def test_g2p_block_matches_jax_reference(jmk, tmk, dtype):
     rng = np.random.default_rng(2)
     n, pmax, starts, counts = _blocks()
     packed = _random_packed(rng, n, dtype)
@@ -119,7 +139,7 @@ def test_g2p_block_matches_jax_reference(tmk, dtype):
     _assert_g2p_close(out.numpy(), np.asarray(ref)[..., :24], TOL[dtype])
 
 
-def test_p2g_block_matches_pallas_interpret(tmk):
+def test_p2g_block_matches_pallas_interpret(jmk, tmk):
     """The port's K2 plain version against the Pallas TPU kernel body run in
     interpret mode (float32, the kernel's only type)."""
     rng = np.random.default_rng(3)
@@ -139,7 +159,7 @@ def test_p2g_block_matches_pallas_interpret(tmk):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
 
-def test_g2p_block_matches_pallas_interpret(tmk):
+def test_g2p_block_matches_pallas_interpret(jmk, tmk):
     """The port's K3 plain version against the Pallas TPU kernel body run in
     interpret mode.  The Pallas output keeps the TPU's 8-row alignment
     window (block a's particle s at row offs[a] + s); the port's has none."""

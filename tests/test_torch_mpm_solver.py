@@ -49,6 +49,19 @@ def _to_numpy(state):
     return {f.name: np.asarray(getattr(state, f.name)) for f in dataclasses.fields(state)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch on one thread while these tests run: pytest-xdist runs several
+    workers on the same cores, and torch's default of one thread per core
+    then oversubscribes them and slows these tests several-fold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def T():
     from drake_tpu_torch.mpm import solver

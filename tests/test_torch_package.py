@@ -18,6 +18,19 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch on one thread while these tests run: pytest-xdist runs several
+    workers on the same cores, and torch's default of one thread per core
+    then oversubscribes them and slows these tests several-fold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _loaded(imports, roots):
     """Packages under `roots` that a fresh interpreter has loaded after
     running the statements `imports` from the repo root."""
@@ -45,12 +58,16 @@ def test_import_loads_no_jax():
 
 def test_collecting_port_tests_loads_no_torch():
     """Importing the port's test files, as every pytest worker does at
-    collection, loads neither torch nor the port."""
+    collection, loads neither torch nor the port, nor the JAX package's
+    Pallas kernels (and with them the Mosaic extensions)."""
     imports = (
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_mpm_kernels, test_torch_mpm_solver, test_torch_package"
     )
-    assert _loaded(imports, ("torch", "drake_tpu_torch")) == []
+    loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
+    assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
+    assert "drake_tpu.ops.mpm_kernels" not in loaded
+    assert [m for m in loaded if "pallas" in m or "mosaic" in m] == []
 
 
 def test_cpu_path_launches_no_kernel():
