@@ -9,14 +9,25 @@ Phases (each prints its lines; any failure exits 1):
 1. build the hand-written kernels from drake_tpu_torch/ops/csrc with nvcc;
 2. hold each kernel (K1 grid update, K2 blocked P2G, K3 blocked G2P) against
    its plain PyTorch version on the card, on substep inputs of the bench
-   scene (v and F perturbed from a fixed seed so that every channel is live);
+   scene (v and F perturbed from a fixed seed so that every channel is live)
+   at both sizes, and at the small size with the capacities cut: blocks that
+   overflow ``block_capacity`` (counts clamped to a pmax that is no multiple
+   of a kernel's chunk) and blocks beyond ``max_active_blocks``;
 3. drive the main path -- ``simulate`` (K2 + K1) and ``mpm_substep_blocked``
    (K2 + K1 + K3), 200 substeps each, and the same two with
    ``xla_only=True`` (the plain versions) -- on the elastic-block scene of
    benchmarks/bench_mpm_substeps.py at 17,576 and 132,651 particles; check
    dropped == 0, finite state, free fall (mean v_z = -g t), and kernel vs
    plain agreement in x and v, and count the kernel launches of that run;
-4. time each kernel against its plain version at the main path's shapes.
+4. time each kernel at the main path's shapes, back to back (inputs warm in
+   the L2 cache) and with the cache flushed before every call (cold), beside
+   its plain version and its bound: the larger of its bytes over the card's
+   memory rate and its operations over the card's float32 rate.
+
+``python3 chip_smoke.py --profile`` adds a fifth phase: ``torch.profiler``
+over 20 substeps of each kernel path, for the device time, the busy share
+and the kernel count of a substep, and K2's own clocks: the cycles a CTA
+spends in each of its phases.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
@@ -35,7 +46,19 @@ import traceback
 SUBSTEPS = 200
 WARMUP_SUBSTEPS = 3
 KERNEL_REPS = 20
+PROFILE_SUBSTEPS = 20
 SEED = 0
+# Published peaks of an H100 SXM (NVIDIA's data sheet): device memory rate and
+# float32 rate outside the tensor cores.  A kernel's bound is the larger of
+# its bytes over the first and its operations over the second.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# Written between two cold calls: several times the 50 MB L2 cache, and long
+# enough on the card for the host to queue the next call behind it.
+FLUSH_BYTES = 512 * 2**20
+# Spin on the card while the host queues the calls of a timed loop, so that
+# the events bracket back-to-back kernels and not the host's dispatch.
+SPIN_CYCLES = 5_000_000
 # Kernel vs plain, max |x| and |v| difference after 200 substeps (float32;
 # different summation orders; far below a cell of 1/64).
 MAX_DIFF_PATHS = 1e-4
@@ -82,11 +105,13 @@ def scene(mpm, scale, device):
 
 
 def time_ms(torch, fn, reps):
-    """Mean device time of `fn` over `reps` calls, by CUDA events."""
+    """Mean device time of `fn` over `reps` back-to-back calls, by CUDA
+    events (inputs and outputs stay warm in the L2 cache)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -95,9 +120,38 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def time_cold_ms(torch, fn, reps, flush):
+    """Mean device time of `fn` over `reps` calls, each between its own pair
+    of events and after `flush` (larger than the L2 cache) was overwritten,
+    so that no input or output of the call is cached."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for i in range(reps):
+        flush.fill_(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def bound_ms(nbytes, flops):
+    """(least time in ms the card could take, what bounds it)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
 def kernel_cases(torch, np, mpm, mk, config, state):
-    """(name, kernel call, plain call, error bounds) at the substep inputs
-    of `state`, perturbed so that stress, u0 and C are all nonzero."""
+    """(name, kernel call, plain call, error bounds, bytes, operations) at
+    the substep inputs of `state`, perturbed so that stress, u0 and C are
+    all nonzero.  Bytes count every input read once and every output written
+    once (K2 reads packed columns 0:28, K3 all 40); operations count the
+    float32 multiplies and adds of the taken particles."""
     rng = np.random.default_rng(SEED)
     n = state.x.shape[0]
     dev = state.x.device
@@ -138,13 +192,23 @@ def kernel_cases(torch, np, mpm, mk, config, state):
             ("C", slice(15, 24), 1e-5 * dxi2 * vmax * xmax),
         ]
 
+    A = sort.starts.shape[0]
+    taken = n - int(sort.dropped)
+    table_bytes = 2 * A * 4  # starts and counts
+    k1_bytes = 4 * (mass.numel() + 2 * mom.numel())
+    k2_bytes = 4 * (n * 28 + A * mk.P2G_NV * mk.P2G_NODES) + table_bytes
+    k3_bytes = 4 * (sort.packed.numel() + vel_ext.numel()
+                    + A * pmax * mk.G2P_OUT) + table_bytes
+    k1_flops = mass.numel() * 3 * 2
+    k2_flops = taken * 27 * (2 + 2 * 13)
+    k3_flops = taken * (27 * (2 + 2 * mk.G2P_VEL_CH) + 150)
     return [
         ("update_grid", lambda: mk.update_grid_cuda(*grid_args),
-         lambda: mk.update_grid_reference(*grid_args), bound_k1),
+         lambda: mk.update_grid_reference(*grid_args), bound_k1, k1_bytes, k1_flops),
         ("p2g_block", lambda: mk.p2g_block_cuda(*p2g_args),
-         lambda: mk.p2g_block_reference(*p2g_args), bound_k2),
+         lambda: mk.p2g_block_reference(*p2g_args), bound_k2, k2_bytes, k2_flops),
         ("g2p_block", lambda: mk.g2p_block_cuda(*g2p_args),
-         lambda: mk.g2p_block_reference(*g2p_args), bound_k3),
+         lambda: mk.g2p_block_reference(*g2p_args), bound_k3, k3_bytes, k3_flops),
     ]
 
 
@@ -179,7 +243,93 @@ def run_path(torch, mpm, path, config, state, n):
     return out, start.elapsed_time(end)
 
 
-def main() -> int:
+def profile_paths(torch, mpm, scales, card):
+    """torch.profiler over PROFILE_SUBSTEPS substeps of each kernel path:
+    device time, busy share and kernel count per substep, and the three
+    hand-written kernels' device time per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_device_us(avg):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            value = getattr(avg, attr, None)
+            if value is not None:
+                return float(value)
+        return 0.0
+
+    for scale, (config, state) in scales.items():
+        n = state.x.shape[0]
+        for path in ("simulate", "blocked"):
+            run_path(torch, mpm, path, config, state, WARMUP_SUBSTEPS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_path(torch, mpm, path, config, state, PROFILE_SUBSTEPS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_SUBSTEPS
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run_path(torch, mpm, path, config, state, PROFILE_SUBSTEPS)
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+            avgs = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+            device_ms = sum(self_device_us(a) for a in avgs) / 1e3
+            check(device_ms > 0, "the profiler recorded no device time")
+            count = sum(a.count for a in avgs)
+            print(f"[profile scale={scale} n={n}] {path} kernel: wall "
+                  f"{wall_ms!r} ms/substep (no profiler), device kernels "
+                  f"{device_ms / PROFILE_SUBSTEPS!r} ms/substep, busy "
+                  f"{device_ms / traced_ms!r}, "
+                  f"{count / PROFILE_SUBSTEPS!r} kernels/substep [{card}]")
+            for a in avgs:
+                for kernel in ("update_grid_kernel", "p2g_block_kernel", "g2p_block_kernel"):
+                    if kernel in a.key:
+                        print(f"[profile scale={scale} n={n}] {path}: {kernel} "
+                              f"{self_device_us(a) / 1e3 / a.count!r} ms/call "
+                              f"x {a.count} [{card}]")
+
+
+def probe_k2(torch, np, mpm, mk, scales, card):
+    """K2's own clocks (``p2g_block_cuda(probe=True)``) at the bench scene:
+    SM cycles a CTA spends between its phase boundaries, as medians over the
+    fullest blocks and over all blocks with particles, for the CTAs of the
+    first wave and for those that start later, and the kernel's span on the
+    device timer."""
+    names = mk.P2G_STAMP_NAMES
+    for scale, (config, state) in scales.items():
+        sort = mpm.sort_particles(config, state)
+        args = (sort.packed, sort.starts, sort.counts, config.block_capacity)
+        for _ in range(3):  # the last of three back-to-back launches is read
+            _, stamps = mk.p2g_block_cuda(*args, probe=True)
+        torch.cuda.synchronize()
+        s = stamps.cpu().numpy().astype(np.float64)
+        counts = sort.counts.cpu().numpy()
+        entry_us = (s[:, 8] - s[:, 8].min()) / 1e3
+        exit_us = (s[:, 9] - s[:, 8].min()) / 1e3
+        loaded = counts > 0
+        fullest = counts >= 0.95 * counts.max()
+        first_wave = entry_us < 1.0
+        tag = f"[probe scale={scale} n={state.x.shape[0]}] p2g_block_kernel"
+        line = (f"{tag}: span {float(exit_us.max())!r} us, {int(loaded.sum())} CTAs with "
+                f"particles ({int((loaded & ~first_wave).sum())} enter after 1 us)")
+        if (~loaded).any():
+            line += (f", {int((~loaded).sum())} without (median "
+                     f"{float(np.median((exit_us - entry_us)[~loaded]))!r} us each, "
+                     f"entering from {float(entry_us[~loaded].min())!r} us)")
+        print(f"{line} [{card}]")
+        steps = np.diff(s[:, :8], axis=1)
+        for label, group in (("fullest blocks", fullest), ("blocks with particles", loaded)):
+            for wave, sel in (("first wave", group & first_wave), ("later", group & ~first_wave)):
+                if not sel.any():
+                    continue
+                med = np.median(steps[sel], axis=0)
+                print(f"{tag}: {label}, {wave} ({int(sel.sum())} CTAs, median rows "
+                      f"{float(np.median(counts[sel]))!r}): cycles to "
+                      + ", ".join(f"{name} {m:.0f}" for name, m in zip(names[1:8], med))
+                      + f"; entry to exit {np.median(s[sel, 7] - s[sel, 0]):.0f} cycles, "
+                      f"{float(np.median((exit_us - entry_us)[sel]))!r} us [{card}]")
+
+
+def main(argv) -> int:
     import numpy as np
     import torch
 
@@ -213,19 +363,31 @@ def main() -> int:
 
     scales = {1: scene(mpm, 1, dev), 2: scene(mpm, 2, dev)}
     errs = {name: 0.0 for name in KERNELS}
-    kernel_ms, plain_ms = {}, {}
+    timed = {}
 
     # ---- 2. per-kernel parity ---------------------------------------------
-    for scale, (config, state) in scales.items():
-        n = state.x.shape[0]
-        tag = (f"scale={scale} n={n} A={config.max_active_blocks} "
+    def parity(scale, config, state):
+        tag = (f"scale={scale} n={state.x.shape[0]} A={config.max_active_blocks} "
                f"pmax={config.block_capacity}")
-        for name, kernel, plain, bounds in kernel_cases(torch, np, mpm, mk, config, state):
+        dropped = int(mpm.sort_particles(config, state).dropped)
+        for name, kernel, plain, bounds, _, _ in kernel_cases(
+                torch, np, mpm, mk, config, state):
+            # kernel_parity synchronises: a fault shows at the kernel at fault.
             err, ok, detail = kernel_parity(torch, name, kernel, plain, bounds)
             errs[name] = max(errs[name], err)
-            print(f"[parity {tag}] {name}: max|kernel - plain| = {err:.3e} "
-                  f"({detail}) {'ok' if ok else 'FAIL'}")
-            check(ok, f"{name} disagrees with its plain version at scale {scale}")
+            print(f"[parity {tag} dropped={dropped}] {name}: max|kernel - plain| "
+                  f"= {err:.3e} ({detail}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} disagrees with its plain version at {tag}")
+        return dropped
+
+    # Capacities cut at the small size: every full block overflows a pmax of
+    # 200 (no multiple of 32), and with 8 active blocks the others are left out.
+    config1, state1 = scales[1]
+    for cut in (dict(block_capacity=200), dict(max_active_blocks=8)):
+        dropped = parity(1, dataclasses.replace(config1, **cut), state1)
+        check(dropped > 0, f"{cut} dropped no particle: the case tests nothing")
+    for scale, (config, state) in scales.items():
+        check(parity(scale, config, state) == 0, "the bench scene dropped particles")
         # Warm-up of every path before the counted run.
         for path in ("simulate", "blocked"):
             for cfg in (config, dataclasses.replace(config, xla_only=True)):
@@ -235,6 +397,7 @@ def main() -> int:
     # ---- 3. main path, counted ---------------------------------------------
     mk.reset_launch_counts()
     results = {}
+    per_substep = {name: {} for name in KERNELS}
     for scale, (config, state) in scales.items():
         plain_cfg = dataclasses.replace(config, xla_only=True)
         for path in ("simulate", "blocked"):
@@ -248,6 +411,8 @@ def main() -> int:
             want = {"update_grid": SUBSTEPS, "p2g_block": SUBSTEPS,
                     "g2p_block": SUBSTEPS if path == "blocked" else 0}
             check(launched == want, f"{path} launches {launched}, expected {want}")
+            for name in KERNELS:
+                per_substep[name][path] = launched[name] / SUBSTEPS
             results[(scale, path)] = (out_k, ms_k, out_p, ms_p)
     launches = dict(mk.LAUNCHES)
     print(f"[launches] main path: {json.dumps(launches)}")
@@ -279,19 +444,38 @@ def main() -> int:
         check(ok, f"{path}: kernel and plain paths disagree")
 
     # ---- 4. kernel times ---------------------------------------------------
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     for scale, (config, state) in scales.items():
         n = state.x.shape[0]
-        for name, kernel, plain, _ in kernel_cases(torch, np, mpm, mk, config, state):
-            k_ms = time_ms(torch, kernel, KERNEL_REPS)
-            p_ms = time_ms(torch, plain, KERNEL_REPS)
-            kernel_ms[name], plain_ms[name] = k_ms, p_ms
-            print(f"[time scale={scale} n={n}] {name}: kernel {k_ms!r} ms, "
-                  f"plain {p_ms!r} ms [{card}]")
+        for name, kernel, plain, _, nbytes, flops in kernel_cases(
+                torch, np, mpm, mk, config, state):
+            # kernel, plain, plain, kernel: both orders within one run.
+            warm = [time_ms(torch, kernel, KERNEL_REPS)]
+            p_ms = [time_ms(torch, plain, KERNEL_REPS), time_ms(torch, plain, KERNEL_REPS)]
+            warm.append(time_ms(torch, kernel, KERNEL_REPS))
+            cold = time_cold_ms(torch, kernel, KERNEL_REPS, flush)
+            least, bound_by = bound_ms(nbytes, flops)
+            timed[name] = {
+                "ms": min(warm), "cold_ms": cold, "plain_ms": min(p_ms),
+                "bound_ms": least, "bound_by": bound_by,
+            }
+            print(f"[time scale={scale} n={n}] {name}: kernel warm {warm!r} ms, "
+                  f"cold {cold!r} ms, plain {p_ms!r} ms, bound {least!r} ms "
+                  f"({nbytes} bytes, {flops} operations: {bound_by}), share of "
+                  f"bound warm {least / min(warm):.3f} cold {least / cold:.3f} [{card}]")
+    del flush
 
+    # ---- 5. profile (on request) --------------------------------------------
+    if "--profile" in argv:
+        profile_paths(torch, mpm, scales, card)
+        probe_k2(torch, np, mpm, mk, scales, card)
+
+    # Times are those of the larger size (the last timed); no single PyTorch
+    # call computes any of the three functions, so library_ms is null.
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": kernel_ms[name], "plain_ms": plain_ms[name]}
+         "launches": launches[name], "launches_per_substep": per_substep[name],
+         "max_abs_err": errs[name], **timed[name], "library_ms": None}
         for name, (route, source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
@@ -303,7 +487,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = main(sys.argv[1:])
     except Exception:  # any failed phase: report and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from drake_tpu_torch.mpm.solver import MpmConfig, MpmState
+from drake_tpu_torch.utils.device import resolve_device
 
 _FLOAT_FIELDS = ("x", "v", "F", "C", "volume", "mass")
 
@@ -24,7 +25,9 @@ def state_from_numpy(
 ) -> MpmState:
     """MpmState from numpy arrays of the JAX ``MpmState`` fields (copied).
     Float fields take `dtype` (default: keep the array's); ``dropped`` is
-    int32 and defaults to 0 when absent."""
+    int32 and defaults to 0 when absent.  The state lies on `device`;
+    ``None`` is the current CUDA device (an error without one)."""
+    device = resolve_device(device)
     floats = {
         name: torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
         for name in _FLOAT_FIELDS

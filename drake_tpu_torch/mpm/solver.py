@@ -29,6 +29,7 @@ import torch
 
 from drake_tpu_torch.ops import mpm_kernels
 from drake_tpu_torch.ops.mpm_kernels import P2G_NODES, device_constant
+from drake_tpu_torch.utils.device import resolve_device
 from drake_tpu_torch.utils.struct import tensor_dataclass
 
 
@@ -87,7 +88,7 @@ class MpmConfig:
 
 
 def _zero_dropped():
-    return torch.zeros((), dtype=torch.int32)
+    return torch.zeros((), dtype=torch.int32, device=resolve_device())
 
 
 @tensor_dataclass
@@ -117,9 +118,12 @@ def make_particle_block(
 ) -> MpmState:
     """Fill an axis-aligned box with particles (the sample initializer).
 
-    The positions are made in float64 by numpy exactly as the JAX package
-    makes them (same `default_rng(jitter_seed)` draws), then cast once, so
-    both packages start from bit-identical particles."""
+    The state lies on `device`; ``None`` is the current CUDA device (an error
+    without one), ``"cpu"`` the CPU.  The positions are made in float64 by
+    numpy exactly as the JAX package makes them (same
+    `default_rng(jitter_seed)` draws), then cast once, so both packages start
+    from bit-identical particles."""
+    device = resolve_device(device)
     lower = np.asarray(lower)
     upper = np.asarray(upper)
     spacing = config.dx / round(particles_per_cell ** (1 / 3))
@@ -256,7 +260,7 @@ def _p2g_affine(config: MpmConfig, state: MpmState):
 class BlockSort(NamedTuple):
     """The block sort shared by the blocked P2G and G2P."""
 
-    packed: torch.Tensor  # (n, 40) rows in block-sorted order
+    packed: torch.Tensor  # (n, 40) rows sorted by (block, cell in block)
     perm: torch.Tensor  # (n,) sorted row -> particle
     bid: torch.Tensor  # (n,) block id of each particle (unsorted order)
     active: torch.Tensor  # (A,) ascending block ids, sentinel nblocks last
@@ -267,8 +271,9 @@ class BlockSort(NamedTuple):
 
 def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
     """Pack each particle's P2G/G2P inputs into one 40-column row, sort the
-    rows by 4^3-cell block, and compact the active blocks to a fixed size
-    (the RebuildMapping + touched-block compaction role).
+    rows by 4^3-cell block and, within a block, by base cell (x slowest, z
+    fastest), and compact the active blocks to a fixed size (the
+    RebuildMapping + touched-block compaction role).
 
     On the blocked paths the base cell is clipped to n-3 per axis (so the
     6^3 window stays in the grid) while the weights come from the unclipped
@@ -292,8 +297,13 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
     # u = m v + B(x_node - x_p) split into u0 = m v - B x_p and + B x_node.
     u0 = state.mass[:, None] * state.v - torch.einsum("nij,nj->ni", affine, state.x)
     bxyz = base // 4
-    bid = (bxyz[:, 0] * nby + bxyz[:, 1]) * nbz + bxyz[:, 2]
     lb_local = base - 4 * bxyz  # 0..3
+    # Sort key: block id * 64 + cell in block (lx * 16 + ly * 4 + lz).
+    radix = device_constant(
+        (64 * nby * nbz, 64 * nbz, 64, 16, 4, 1), torch.int64, dev
+    )
+    key = (torch.cat([bxyz, lb_local], dim=1) * radix).sum(dim=1)
+    bid = key >> 6
 
     packed = torch.cat(
         [
@@ -303,9 +313,13 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
         ],
         dim=1,
     )
-    # The order within a block only changes the order of summation; a stable
-    # sort makes it reproducible.
-    bid_s, perm = torch.sort(bid, stable=True)
+    # Blocks stay contiguous runs in ascending order.  Within a block the
+    # cell order makes each cell one run of rows and each x-slab of cells one
+    # run of runs, which K2 stages and walks, and gives K3's neighbouring
+    # threads the same window nodes; a stable sort makes the order
+    # reproducible.
+    key_s, perm = torch.sort(key, stable=True)
+    bid_s = key_s >> 6
     packed_s = packed[perm]
 
     # Fixed-size compaction (jnp.unique(size=A, fill_value=nblocks)): the
@@ -382,8 +396,9 @@ def _grid_from_blocks(config: MpmConfig, sort: BlockSort, out, node_pos) -> Grid
 def particle_to_grid_blocked(config: MpmConfig, state: MpmState) -> GridState:
     """Scatter-free P2G: block sort, K2 per active block, halo combine.
 
-    Particles beyond config.block_capacity in a block, or outside the first
-    config.max_active_blocks blocks, are dropped and counted."""
+    Particles beyond config.block_capacity in a block (its last ones in cell
+    order), or outside the first config.max_active_blocks blocks, are dropped
+    and counted."""
     sort = sort_particles(config, state)
     out = mpm_kernels.p2g_block(
         sort.packed, sort.starts, sort.counts, config.block_capacity,

@@ -8,7 +8,9 @@
 // nothing, and returns cudaGetLastError() so the wrapper can raise on a
 // refused launch.
 //
-// Packed particle rows (row stride `ld` floats, block-sorted):
+// Packed particle rows (row stride `ld` floats, a multiple of 4, rows 16-byte
+// aligned; sorted by block and, within a block, by base cell with x slowest
+// and z fastest):
 //   0:16 values [m, u0 = m v - B x (3), B (9), pad (3)]
 //   16:25 B-spline taps [wx0..2, wy0..2, wz0..2]   25:28 local base (0..3)
 //   28:31 x   31:40 F (row-major)
@@ -23,10 +25,41 @@ namespace {
 constexpr int kNodes = 216;         // 6^3 window nodes of a 4^3-cell block
 constexpr int kP2GChannels = 16;    // output channels of K2
 constexpr int kP2GLive = 13;        // m, u0, B; channels 13:16 are written 0
-constexpr int kStageRows = 128;     // particle rows staged per chunk (K2)
-constexpr int kStageCols = 28;      // packed columns K2 reads
+constexpr int kP2GThreads = 512;    // 16 warps, one per (ly, lz) cell column
+constexpr int kP2GStageRows = 256;  // particle rows per staged chunk (K2)
+constexpr int kP2GRowVec = 7;       // float4 per staged row: packed 0:28
+constexpr int kP2GColNodes = 54;    // 3 x 3 x 6 window nodes of a cell column
+constexpr int kP2GStamps = 10;      // clock readings a CTA of the probed K2 writes
+// Two stages of rows and 16 columns' sums: dynamic shared memory (above the
+// 48 KB static limit), sized so that two CTAs fit an SM.
+constexpr int kP2GSmemBytes = 2 * kP2GStageRows * kP2GRowVec * 16 +
+                              16 * kP2GLive * kP2GColNodes * 4;
 constexpr int kG2PChannels = 12;    // [v, v*node_x, v*node_y, v*node_z]
 constexpr int kG2POut = 24;         // [x_new, v_new, F_new, C_new]
+constexpr int kG2PWarps = 4;        // warps of a K3 CTA
+constexpr int kG2PRowVec = 6;       // float4 per row in and out: packed 16:40
+constexpr int kG2PRowStride = 7;    // staged row stride in float4 (odd: no
+                                    // bank conflict between a warp's rows)
+
+// 16-byte asynchronous copy from device memory into shared memory (both
+// addresses 16-byte aligned), its commit into a group, and the wait until at
+// most N of this thread's groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ int clamp03(float v) {
+  return min(max(static_cast<int>(v), 0), 3);
+}
 
 // Particles of a block that the kernels read: at most pmax, and never a row
 // outside [0, n_rows) -- the wrapper cannot check device-side starts and
@@ -70,150 +103,402 @@ __global__ void update_grid_kernel(const float* __restrict__ mass,
 // K2 -- blocked P2G.  Replaces _p2g_block_kernel (drake_tpu/ops/
 // mpm_kernels.py:267), which DMA'd each active block's sorted particle rows
 // into VMEM and contracted them against a factorised one-hot weight matrix
-// on the MXU.  Bound on this card: the weight test and 13 FMAs per
-// (particle, covered node) pair in registers -- about 27 * 13 FMAs per
-// particle -- plus one read of 28 floats per particle; no tensor-core shape
-// fits a 216 x 13 product with a ragged particle count.  Design: one CTA per
-// active block; the block's rows are staged through shared memory in chunks
-// of kStageRows (every thread then reads the same row: a broadcast, no bank
-// conflicts); one thread per window node walks the staged particles in
-// sorted order and accumulates the 13 live channels in registers for the
-// particles whose 3^3 stencil covers its node.  Each output element has one
-// owner and a fixed summation order: deterministic, no atomics.  The halo
-// combine into the dense grid stays in PyTorch.
-__global__ void __launch_bounds__(256)
+// on the MXU.  Bound on this card: bytes -- packed columns 0:28 read once
+// (112 B a particle) and the (A, 16, 216) output written once, empty blocks
+// included; the 27 x 13 FMAs a particle are far below that.  What a kernel
+// pays beyond the bytes is arithmetic and address work, shared-memory reads
+// and the barriers between its phases.  Design: one CTA per active block,
+// one warp per (ly, lz) column of the block's cells, walked along x.  Rows
+// arrive by 16-byte cp.async in double-buffered chunks of kP2GStageRows, the
+// next chunk in flight while this one is walked; the rows are sorted by cell
+// with x slowest, so a chunk holds whole x-slabs of the block and every warp
+// finds rows of its column in it.  Cell boundaries are found in each staged
+// chunk from the sorted base columns.  Within a warp, half-warp h takes
+// every second row of a cell and lane c carries value channel c at all 27
+// taps of the 3^3 stencil in registers: a row costs a lane one value, nine
+// tap weights and 39 multiply-adds, with no coverage test.  The lane's sums
+// belong to window nodes x = lx + di; when the walk steps to the next lx the
+// sums at di = 0 are complete: the two halves are added (one shuffle) and
+// stored, and the others move one x down in registers.  So a warp ends with
+// its column's 6 x 3 x 3 node sums in its own part of shared memory, each
+// written once.  Last, every output element adds the at most nine columns
+// that cover its node, in a fixed order, and is written once: one owner per
+// element, a fixed summation order, deterministic, no atomics.  A block with
+// no particle only writes zeros.  The halo combine into the dense grid stays
+// in PyTorch.
+//
+// kProbe: thread 0 also writes the clock at each phase boundary, and the
+// device timer at entry and exit, into `stamps` (kP2GStamps a CTA); only
+// mpm_p2g_block_probe instantiates it.
+__device__ __forceinline__ void p2g_stage_chunk(float4* dst,
+                                                const float* __restrict__ packed,
+                                                int64_t first_row, int ld,
+                                                int nrows) {
+  for (int e = threadIdx.x; e < nrows * kP2GRowVec; e += kP2GThreads) {
+    const int r = e / kP2GRowVec, q = e % kP2GRowVec;
+    cp_async16(dst + e, packed + (first_row + r) * ld + 4 * q);
+  }
+}
+
+// Cell in block (lx * 16 + ly * 4 + lz) from a row's packed columns 24:28.
+__device__ __forceinline__ int p2g_cell(float4 b) {
+  return (clamp03(b.y) * 4 + clamp03(b.z)) * 4 + clamp03(b.w);
+}
+
+// The walk steps to the next lx: the nodes at the walk's trailing x are
+// complete.  Each half-warp holds the sums over its own rows; their total is
+// stored at `done` (nine taps, 6 floats apart) and the other sums move one x
+// down.
+__device__ __forceinline__ void p2g_slide(float (&acc)[3][9], float* done,
+                                          bool store) {
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    const float total = acc[0][t] + __shfl_xor_sync(0xffffffffu, acc[0][t], 16);
+    if (store) done[t * 6] = total;
+    acc[0][t] = acc[1][t];
+    acc[1][t] = acc[2][t];
+    acc[2][t] = 0.f;
+  }
+}
+
+template <bool kProbe>
+__device__ __forceinline__ void p2g_stamp(long long* stamps, int slot) {
+  if constexpr (kProbe) {
+    if (threadIdx.x == 0) stamps[blockIdx.x * kP2GStamps + slot] = clock64();
+  }
+}
+
+template <bool kProbe>
+__device__ __forceinline__ void p2g_stamp_timer(long long* stamps, int slot) {
+  if constexpr (kProbe) {
+    if (threadIdx.x == 0) {
+      unsigned long long ns;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+      stamps[blockIdx.x * kP2GStamps + slot] = static_cast<long long>(ns);
+    }
+  }
+}
+
+template <bool kProbe>
+__global__ void __launch_bounds__(kP2GThreads, 2)
 p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
                  const int* __restrict__ starts,
                  const int* __restrict__ counts, int pmax,
-                 float* __restrict__ out) {
-  __shared__ float rows[kStageRows][kStageCols];
+                 float* __restrict__ out, long long* __restrict__ stamps) {
+  p2g_stamp_timer<kProbe>(stamps, 8);
+  p2g_stamp<kProbe>(stamps, 0);
+  // [2][kP2GStageRows * kP2GRowVec] float4 of rows, then the warps' column
+  // sums [16][kP2GLive][kP2GColNodes] float.
+  extern __shared__ float4 smem[];
+  __shared__ int cell_start[65];
+  static_assert(kP2GStageRows < kP2GThreads, "one thread per staged row + 1");
+  constexpr int kStageVec = kP2GStageRows * kP2GRowVec;
+  constexpr int kLive = kP2GLive * kNodes;  // floats of the live channels
+  float4* rows = smem;
+  float* part = reinterpret_cast<float*>(smem + 2 * kStageVec);
   const int a = blockIdx.x;
+  const int tid = threadIdx.x;
   const int start = starts[a];
   const int count = block_count(start, counts[a], pmax, n_rows);
-  const int l = threadIdx.x;
-  const int li = l / 36, lj = (l / 6) % 6, lk = l % 6;
-  float acc[kP2GLive];
-#pragma unroll
-  for (int c = 0; c < kP2GLive; ++c) acc[c] = 0.f;
+  float* o = out + static_cast<int64_t>(a) * kP2GChannels * kNodes;
+  // Channels 13:16, and every channel of a block with no particle.
+  const int first_zero = count == 0 ? 0 : kLive / 4;
+  for (int e = first_zero + tid; e < kP2GChannels * kNodes / 4; e += kP2GThreads) {
+    reinterpret_cast<float4*>(o)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (count == 0) {
+    p2g_stamp<kProbe>(stamps, 7);
+    p2g_stamp_timer<kProbe>(stamps, 9);
+    return;
+  }
 
-  for (int c0 = 0; c0 < count; c0 += kStageRows) {
-    const int nrows = min(kStageRows, count - c0);
-    __syncthreads();  // the previous chunk is fully consumed
-    for (int e = threadIdx.x; e < nrows * kStageCols; e += blockDim.x) {
-      const int r = e / kStageCols, c = e % kStageCols;
-      rows[r][c] = packed[static_cast<int64_t>(start + c0 + r) * ld + c];
+  const int nchunks = (count + kP2GStageRows - 1) / kP2GStageRows;
+  p2g_stage_chunk(rows, packed, start, ld, min(kP2GStageRows, count));
+  cp_async_commit();
+  // Rows out of cell order leave entries unset; 0 keeps them in the stage.
+  if (tid < 65) cell_start[tid] = 0;
+  p2g_stamp<kProbe>(stamps, 1);
+
+  const int warp = tid >> 5, lane = tid & 31;
+  // Lanes 13..15 of a half-warp repeat channel 12 and store nothing.
+  const int half = lane >> 4;
+  const int c = min(lane & 15, kP2GLive - 1);
+  const bool store = half == 0 && (lane & 15) < kP2GLive;
+  float* mine = part + (warp * kP2GLive + c) * kP2GColNodes;
+  float acc[3][9];  // [di][dj * 3 + dk], of window nodes x = lx + di
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) acc[d][t] = 0.f;
+  }
+  int lx = 0;
+
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int c0 = ch * kP2GStageRows;
+    const int nrows = min(kP2GStageRows, count - c0);
+    if (ch + 1 < nchunks) {
+      p2g_stage_chunk(rows + ((ch + 1) & 1) * kStageVec, packed,
+                      static_cast<int64_t>(start) + c0 + kP2GStageRows, ld,
+                      min(kP2GStageRows, count - c0 - kP2GStageRows));
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk has landed; the next may be in flight
+    __syncthreads();
+    if (ch == 0) p2g_stamp<kProbe>(stamps, 2);
+    const float4* chunk = rows + (ch & 1) * kStageVec;
+    // cell_start[c] = first staged row of cell c or later, from the sorted
+    // local bases of the rows: row r sets the entries of the cells that begin
+    // between its predecessor and itself, thread nrows those past the last.
+    if (tid <= nrows) {
+      int prev = -1, cur = 64;
+      if (tid > 0) prev = p2g_cell(chunk[(tid - 1) * kP2GRowVec + 6]);
+      if (tid < nrows) cur = p2g_cell(chunk[tid * kP2GRowVec + 6]);
+      for (int cell = prev + 1; cell <= cur; ++cell) cell_start[cell] = tid;
     }
     __syncthreads();
-    if (l < kNodes) {
-      for (int r = 0; r < nrows; ++r) {
-        const float* p = rows[r];
-        const int di = li - static_cast<int>(p[25]);
-        const int dj = lj - static_cast<int>(p[26]);
-        const int dk = lk - static_cast<int>(p[27]);
-        if (static_cast<unsigned>(di) < 3u && static_cast<unsigned>(dj) < 3u &&
-            static_cast<unsigned>(dk) < 3u) {
-          const float w = p[16 + di] * p[19 + dj] * p[22 + dk];
+    if (ch == 0) p2g_stamp<kProbe>(stamps, 3);
+    for (int x = 0; x < 4; ++x) {
+      const int r_begin = cell_start[16 * x + warp];
+      const int r_end = min(cell_start[16 * x + warp + 1], nrows);
+      if (r_begin >= r_end) continue;
+      for (; lx < x; ++lx) p2g_slide(acc, mine + lx, store);
+      for (int r = r_begin; r < r_end; r += 2) {
+        // An odd run's last step: the second half repeats the last row with
+        // value 0.
+        const bool valid = r + half < r_end;
+        const float4* p4 = chunk + min(r + half, r_end - 1) * kP2GRowVec;
+        const float* p = reinterpret_cast<const float*>(p4);
+        const float4 t0 = p4[4], t1 = p4[5];
+        const float wx[3] = {t0.x, t0.y, t0.z};
+        const float wy[3] = {t0.w, t1.x, t1.y};
+        const float wz[3] = {t1.z, t1.w, p[24]};
+        const float v = valid ? p[c] : 0.f;
 #pragma unroll
-          for (int c = 0; c < kP2GLive; ++c) acc[c] += w * p[c];
+        for (int di = 0; di < 3; ++di) {
+          const float vx = v * wx[di];
+#pragma unroll
+          for (int dj = 0; dj < 3; ++dj) {
+            const float vxy = vx * wy[dj];
+#pragma unroll
+            for (int dk = 0; dk < 3; ++dk) acc[di][dj * 3 + dk] += vxy * wz[dk];
+          }
         }
       }
     }
+    if (ch == 0) p2g_stamp<kProbe>(stamps, 4);
+    __syncthreads();  // chunk and cell_start are free for the next round
   }
-  if (l < kNodes) {
-    float* o = out + static_cast<int64_t>(a) * kP2GChannels * kNodes + l;
+  p2g_stamp<kProbe>(stamps, 5);
+  for (; lx < 6; ++lx) p2g_slide(acc, mine + lx, store);
+  __syncthreads();
+  p2g_stamp<kProbe>(stamps, 6);
+
+  // Window node (i, j, k) is tap (dy, dz) of column (j - dy, k - dz) where
+  // that column exists; the nine are added in a fixed order.  Two threads a
+  // node, one for the even and one for the odd channels.
+  if (tid < 2 * kNodes) {
+    const int node = tid % kNodes;
+    const int i = node / 36, j = (node / 6) % 6, k = node % 6;
+    bool covers[3][3];
 #pragma unroll
-    for (int c = 0; c < kP2GLive; ++c) o[c * kNodes] = acc[c];
+    for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
-    for (int c = kP2GLive; c < kP2GChannels; ++c) o[c * kNodes] = 0.f;
+      for (int dz = 0; dz < 3; ++dz) {
+        covers[dy][dz] = j - dy >= 0 && j - dy <= 3 && k - dz >= 0 && k - dz <= 3;
+      }
+    }
+    for (int ch = tid / kNodes; ch < kP2GLive; ch += 2) {
+      // Tap (0, 0) of column (j, k); the others sit at fixed offsets from it.
+      const float* at = part + ((j * 4 + k) * kP2GLive + ch) * kP2GColNodes + i;
+      float sum = 0.f;
+#pragma unroll
+      for (int dy = 2; dy >= 0; --dy) {
+#pragma unroll
+        for (int dz = 2; dz >= 0; --dz) {
+          if (covers[dy][dz]) {
+            sum += at[(dy * 3 + dz) * 6 -
+                      (dy * 4 + dz) * kP2GLive * kP2GColNodes];
+          }
+        }
+      }
+      o[ch * kNodes + node] = sum;
+    }
   }
+  p2g_stamp<kProbe>(stamps, 7);
+  p2g_stamp_timer<kProbe>(stamps, 9);
 }
 
 // K3 -- blocked G2P.  Replaces _g2p_block_kernel (drake_tpu/ops/
 // mpm_kernels.py:536), which rebuilt the factorised weights per block in
 // VMEM and contracted them with the block's node-velocity window on the MXU.
-// Bound on this card: 27 taps x 12 channels of shared-memory reads and FMAs
-// per particle, the 40-float particle row read, and the (A, pmax, 24) output
-// write (empty slots included).  Design: one CTA per active block loads the
-// block's 216 x 12 window (10.4 KB) into shared memory once; one thread per
-// particle slot computes its 27 taps, reads the window, and writes the
-// whole particle update (x, v, F, C); slots past counts[a] are written 0.
-// No alignment window: block a's particle s sits at slot s.
-__global__ void __launch_bounds__(128)
+// Bound on this card: bytes -- the packed rows and the (A, 216, 12) windows
+// read once and the (A, pmax, 24) output written once, of which the zeros of
+// empty slots and empty blocks are the larger part; 27 taps x 12 channels of
+// FMAs a particle are far below that.  Design: one CTA per active block.  A
+// block with no particle only writes zeros, as float4.  Otherwise the
+// 216 x 12 window is copied into shared memory once (cp.async) and read as
+// three float4 a node; each warp takes every kG2PWarps-th chunk of 32 slots
+// and needs no block-wide barrier after the window: it copies its chunk's
+// packed columns 16:40 (96 B a row) into its own double-buffered stage with
+// 16-byte cp.async, the next chunk in flight while this one is computed;
+// each lane reads its row from the stage (row stride 7 float4, conflict
+// free), computes the 27 taps and the particle update, and writes the 24
+// results back into its own row of the stage; the warp then writes the
+// chunk's 32 x 96 B out as consecutive float4.  Slots past counts[a] are
+// written 0.  Rows sorted by cell make neighbouring lanes read the same
+// window nodes (broadcasts).  No alignment window: block a's particle s sits
+// at slot s.
+__device__ __forceinline__ void g2p_stage_chunk(float4* dst,
+                                                const float* __restrict__ packed,
+                                                int64_t first_row, int ld,
+                                                int nrows, int lane) {
+  for (int e = lane; e < nrows * kG2PRowVec; e += 32) {
+    const int r = e / kG2PRowVec, q = e % kG2PRowVec;
+    cp_async16(dst + r * kG2PRowStride + q,
+               packed + (first_row + r) * ld + 16 + 4 * q);
+  }
+}
+
+__global__ void __launch_bounds__(kG2PWarps * 32)
 g2p_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
                  const float* __restrict__ vel_ext,
                  const int* __restrict__ starts,
                  const int* __restrict__ counts, int pmax, float dxi2,
                  float dt, float* __restrict__ out) {
-  __shared__ float win[kNodes * kG2PChannels];
+  constexpr int kThreads = kG2PWarps * 32;
+  constexpr int kWinVec = kNodes * kG2PChannels / 4;
+  __shared__ float4 win[kWinVec];
+  __shared__ float4 stage[kG2PWarps][2][32 * kG2PRowStride];
   const int a = blockIdx.x;
-  const float* src = vel_ext + static_cast<int64_t>(a) * kNodes * kG2PChannels;
-  for (int e = threadIdx.x; e < kNodes * kG2PChannels; e += blockDim.x) {
-    win[e] = src[e];
-  }
-  __syncthreads();
+  const int tid = threadIdx.x;
   const int start = starts[a];
   const int count = block_count(start, counts[a], pmax, n_rows);
+  float4* o4 = reinterpret_cast<float4*>(
+      out + static_cast<int64_t>(a) * pmax * kG2POut);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (count == 0) {
+    for (int e = tid; e < pmax * kG2PRowVec; e += kThreads) o4[e] = zero4;
+    return;
+  }
 
-  for (int s = threadIdx.x; s < pmax; s += blockDim.x) {
-    float* o = out + (static_cast<int64_t>(a) * pmax + s) * kG2POut;
-    if (s >= count) {
-#pragma unroll
-      for (int c = 0; c < kG2POut; ++c) o[c] = 0.f;
+  const float4* src4 = reinterpret_cast<const float4*>(
+      vel_ext + static_cast<int64_t>(a) * kNodes * kG2PChannels);
+  for (int e = tid; e < kWinVec; e += kThreads) cp_async16(win + e, src4 + e);
+  cp_async_commit();
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nchunks = (pmax + 31) / 32;
+  if (warp * 32 < count) {
+    g2p_stage_chunk(stage[warp][0], packed,
+                    static_cast<int64_t>(start) + warp * 32, ld,
+                    min(32, count - warp * 32), lane);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // the window; the first chunk may be in flight
+  __syncthreads();
+
+  int buf = 0;
+  for (int c = warp; c < nchunks; c += kG2PWarps) {
+    const int s0 = c * 32;
+    const int nslots = min(32, pmax - s0);
+    float4* og = o4 + static_cast<int64_t>(s0) * kG2PRowVec;
+    if (s0 >= count) {  // and so is every later chunk of this warp
+      for (int e = lane; e < nslots * kG2PRowVec; e += 32) og[e] = zero4;
       continue;
     }
-    const float* p = packed + static_cast<int64_t>(start + s) * ld;
-    // The local base is 0..3 by construction; the clamp keeps a corrupt row
-    // inside the shared-memory window.
-    const int lbx = min(max(static_cast<int>(p[25]), 0), 3);
-    const int lby = min(max(static_cast<int>(p[26]), 0), 3);
-    const int lbz = min(max(static_cast<int>(p[27]), 0), 3);
-    float g[kG2PChannels];
+    const int s_next = s0 + kG2PWarps * 32;
+    if (s_next < count) {
+      g2p_stage_chunk(stage[warp][buf ^ 1], packed,
+                      static_cast<int64_t>(start) + s_next, ld,
+                      min(32, count - s_next), lane);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk has landed; the next may be in flight
+    __syncwarp();
+    float4* st = stage[warp][buf];
+    float4* mine = st + lane * kG2PRowStride;
+    if (s0 + lane < count) {
+      const float4 q0 = mine[0], q1 = mine[1], q2 = mine[2];
+      const float4 q3 = mine[3], q4 = mine[4], q5 = mine[5];
+      const float wx[3] = {q0.x, q0.y, q0.z};
+      const float wy[3] = {q0.w, q1.x, q1.y};
+      const float wz[3] = {q1.z, q1.w, q2.x};
+      // The local base is 0..3 by construction; the clamp keeps a corrupt
+      // row inside the shared-memory window.
+      const int base = (clamp03(q2.y) * 6 + clamp03(q2.z)) * 6 + clamp03(q2.w);
+      const float x[3] = {q3.x, q3.y, q3.z};
+      const float F[3][3] = {{q3.w, q4.x, q4.y}, {q4.z, q4.w, q5.x},
+                             {q5.y, q5.z, q5.w}};
+      float g[kG2PChannels];
 #pragma unroll
-    for (int c = 0; c < kG2PChannels; ++c) g[c] = 0.f;
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) {
-        const float wxy = p[16 + i] * p[19 + j];
-        const float* row = win + ((lbx + i) * 36 + (lby + j) * 6 + lbz) * kG2PChannels;
+      for (int ch = 0; ch < kG2PChannels; ++ch) g[ch] = 0.f;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float w = wxy * p[22 + k];
+      for (int i = 0; i < 3; ++i) {
 #pragma unroll
-          for (int c = 0; c < kG2PChannels; ++c) {
-            g[c] += w * row[k * kG2PChannels + c];
+        for (int j = 0; j < 3; ++j) {
+          const float wxy = wx[i] * wy[j];
+          const float4* node = win + (base + i * 36 + j * 6) * 3;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const float w = wxy * wz[k];
+            const float4 n0 = node[3 * k], n1 = node[3 * k + 1], n2 = node[3 * k + 2];
+            g[0] += w * n0.x; g[1] += w * n0.y; g[2] += w * n0.z; g[3] += w * n0.w;
+            g[4] += w * n1.x; g[5] += w * n1.y; g[6] += w * n1.z; g[7] += w * n1.w;
+            g[8] += w * n2.x; g[9] += w * n2.y; g[10] += w * n2.z; g[11] += w * n2.w;
           }
         }
       }
-    }
-    float x[3], F[3][3], C[3][3];
+      // g[3 + 3 * c + r] = sum_l w v_r n_c, so C[r][c] = dxi2 (sum w v_r n_c
+      // - v_r x_c).
+      float C[3][3], o[kG2POut];
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      x[r] = p[28 + r];
+      for (int r = 0; r < 3; ++r) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) F[r][c] = p[31 + 3 * r + c];
-    }
-    // g[3 + 3 * c + r] = sum_l w v_r n_c, so C[r][c] = dxi2 (sum w v_r n_c
-    // - v_r x_c).
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) C[r][c] = dxi2 * (g[3 + 3 * c + r] - g[r] * x[c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      o[r] = x[r] + dt * g[r];
-      o[3 + r] = g[r];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float f = 0.f;
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          f += ((r == q ? 1.f : 0.f) + dt * C[r][q]) * F[q][c];
-        }
-        o[6 + 3 * r + c] = f;
-        o[15 + 3 * r + c] = C[r][c];
+        for (int c = 0; c < 3; ++c) C[r][c] = dxi2 * (g[3 + 3 * c + r] - g[r] * x[c]);
       }
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        o[r] = x[r] + dt * g[r];
+        o[3 + r] = g[r];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float f = 0.f;
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            f += ((r == q ? 1.f : 0.f) + dt * C[r][q]) * F[q][c];
+          }
+          o[6 + 3 * r + c] = f;
+          o[15 + 3 * r + c] = C[r][c];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kG2PRowVec; ++q) {
+        mine[q] = make_float4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kG2PRowVec; ++q) mine[q] = zero4;
     }
+    __syncwarp();
+    for (int e = lane; e < nslots * kG2PRowVec; e += 32) {
+      og[e] = st[(e / kG2PRowVec) * kG2PRowStride + e % kG2PRowVec];
+    }
+    __syncwarp();  // the stage is free for the chunk after next
+    buf ^= 1;
   }
+}
+
+template <bool kProbe>
+int launch_p2g_block(const float* packed, int n_rows, int ld, const int* starts,
+                     const int* counts, int num_blocks, int pmax, float* out,
+                     long long* stamps, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      p2g_block_kernel<kProbe>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kP2GSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p2g_block_kernel<kProbe><<<num_blocks, kP2GThreads, kP2GSmemBytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      packed, n_rows, ld, starts, counts, pmax, out, stamps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -235,16 +520,24 @@ int mpm_update_grid(const float* mass, const float* mom, float* vel, int nx,
 int mpm_p2g_block(const float* packed, int n_rows, int ld, const int* starts,
                   const int* counts, int num_blocks, int pmax, float* out,
                   void* stream) {
-  p2g_block_kernel<<<num_blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      packed, n_rows, ld, starts, counts, pmax, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_p2g_block<false>(packed, n_rows, ld, starts, counts, num_blocks,
+                                 pmax, out, nullptr, stream);
+}
+
+// The same kernel with its phase clocks: stamps is (num_blocks, 10) int64.
+int mpm_p2g_block_probe(const float* packed, int n_rows, int ld,
+                        const int* starts, const int* counts, int num_blocks,
+                        int pmax, float* out, long long* stamps, void* stream) {
+  return launch_p2g_block<true>(packed, n_rows, ld, starts, counts, num_blocks,
+                                pmax, out, stamps, stream);
 }
 
 int mpm_g2p_block(const float* packed, int n_rows, int ld,
                   const float* vel_ext, const int* starts, const int* counts,
                   int num_blocks, int pmax, float dxi2, float dt, float* out,
                   void* stream) {
-  g2p_block_kernel<<<num_blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  g2p_block_kernel<<<num_blocks, kG2PWarps * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       packed, n_rows, ld, vel_ext, starts, counts, pmax, dxi2, dt, out);
   return static_cast<int>(cudaGetLastError());
 }

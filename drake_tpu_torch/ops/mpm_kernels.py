@@ -13,7 +13,9 @@ went through the kernels.
 
 The packed particle row keeps the JAX package's column meaning but is 40
 wide instead of 128 (no TPU lane padding): 0:16 values [m, u0 (3), B (9),
-pad (3)], 16:25 B-spline taps, 25:28 local base, 28:31 x, 31:40 F.  The TPU's
+pad (3)], 16:25 B-spline taps, 25:28 local base, 28:31 x, 31:40 F.  Rows are
+sorted by block; the K2 kernel also needs them sorted by local base within a
+block (``sort_particles`` does both), the plain versions do not.  The TPU's
 8-row DMA alignment (``align_starts``/``align_window``), its custom_vmap batch
 folding and the MXU weight factorisation have no counterpart here.
 """
@@ -31,6 +33,15 @@ P2G_NODES = 216  # 6^3 block-window nodes
 G2P_VEL_CH = 12  # [v(3), v*node_x(3), v*node_y(3), v*node_z(3)]
 G2P_OUT = 24  # [x_new(3), v_new(3), F_new(9), C_new(9)]
 PACKED_COLS = 40
+# Columns of the K2 probe's stamps: clock cycles at entry, first copy started,
+# first chunk landed, its cell runs found, warp 0 done with it, every chunk
+# walked, column sums complete, exit; then the device timer (ns) at entry and
+# exit.  A CTA without particles writes only entry and exit.
+P2G_STAMP_NAMES = (
+    "entry", "copy_started", "landed", "cells_found", "chunk0_walked", "walked",
+    "columns_done", "exit", "timer_entry_ns", "timer_exit_ns",
+)
+P2G_STAMPS = len(P2G_STAMP_NAMES)
 
 LAUNCHES = {"update_grid": 0, "p2g_block": 0, "g2p_block": 0}
 
@@ -61,6 +72,21 @@ def _check(name, t, dtype=torch.float32, shape=None, device=None):
         raise ValueError(f"{name}: must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _check_rows(packed, min_cols: int) -> None:
+    """`packed` as K2 and K3 take it: (n, >= min_cols) float32 whose rows the
+    kernels copy in 16-byte pieces, so each row must start 16-byte aligned."""
+    _check("packed", packed)
+    if packed.dim() != 2 or packed.shape[1] < min_cols:
+        raise ValueError(
+            f"packed: expected (n, >={min_cols}), got {tuple(packed.shape)}"
+        )
+    if packed.shape[1] % 4 or packed.data_ptr() % 16:
+        raise ValueError(
+            "packed: rows must be 16-byte aligned (a multiple of 4 columns, "
+            f"aligned storage), got {packed.shape[1]} columns"
+        )
 
 
 def _raise_on_error(kernel: str, rc: int) -> None:
@@ -176,7 +202,7 @@ def _window_weights(pk, valid):
 
 
 def p2g_block_reference(packed, starts, counts, pmax: int):
-    """Plain version.  packed: (n, >=28) block-sorted rows; starts, counts:
+    """Plain version.  packed: (n, >=28) rows sorted by block; starts, counts:
     (A,).  Returns (A, 16, 216): for each block, the sum over its particles of
     the 16 value channels times each window node's B-spline weight."""
     pk, valid = _gather_blocks(packed, starts, counts, pmax)
@@ -184,29 +210,42 @@ def p2g_block_reference(packed, starts, counts, pmax: int):
     return torch.einsum("apv,apl->avl", Vb, _window_weights(pk, valid))
 
 
-def p2g_block_cuda(packed, starts, counts, pmax: int):
+def p2g_block_cuda(packed, starts, counts, pmax: int, probe=False):
     """Launch K2 (``p2g_block_kernel``).  packed: (n, >=28) float32; starts,
     counts: (A,) int32.  Channels 0:13 as the plain version; the pad channels
-    13:16 are written 0 (the solver's packed rows carry zeros there)."""
+    13:16 are written 0 (the solver's packed rows carry zeros there).
+
+    The kernel finds each cell's rows as one run, so within a block the rows
+    must be sorted by the local base (columns 25:28, x slowest), as
+    ``sort_particles`` sorts them; the plain version takes any order.
+
+    ``probe=True`` launches the kernel's instrumented build and returns
+    ``(out, stamps)``: stamps is (A, P2G_STAMPS) int64, one row a CTA, named
+    by ``P2G_STAMP_NAMES`` (SM clock cycles at the phase boundaries of a CTA
+    with particles, then the device timer in ns at entry and exit)."""
     A = starts.shape[0]
-    _check("packed", packed)
-    if packed.dim() != 2 or packed.shape[1] < 28:
-        raise ValueError(f"packed: expected (n, >=28), got {tuple(packed.shape)}")
+    _check_rows(packed, 28)
     _check("starts", starts, torch.int32, (A,), packed.device)
     _check("counts", counts, torch.int32, (A,), packed.device)
     out = torch.empty((A, P2G_NV, P2G_NODES), dtype=torch.float32, device=packed.device)
+    stamps = None
+    if probe:
+        stamps = torch.zeros((A, P2G_STAMPS), dtype=torch.int64, device=packed.device)
     if A == 0:
-        return out
+        return (out, stamps) if probe else out
     lib = _build.load_library()
+    args = (
+        packed.data_ptr(), packed.shape[0], packed.shape[1],
+        starts.data_ptr(), counts.data_ptr(), A, int(pmax), out.data_ptr(),
+    )
     with torch.cuda.device(packed.device):
-        rc = lib.mpm_p2g_block(
-            packed.data_ptr(), packed.shape[0], packed.shape[1],
-            starts.data_ptr(), counts.data_ptr(), A, int(pmax),
-            out.data_ptr(), _stream(packed.device),
-        )
+        if probe:
+            rc = lib.mpm_p2g_block_probe(*args, stamps.data_ptr(), _stream(packed.device))
+        else:
+            rc = lib.mpm_p2g_block(*args, _stream(packed.device))
     _raise_on_error("p2g_block", rc)
     LAUNCHES["p2g_block"] += 1
-    return out
+    return (out, stamps) if probe else out
 
 
 def p2g_block(packed, starts, counts, pmax: int, plain=False):
@@ -254,10 +293,10 @@ def g2p_block_cuda(packed, vel_ext, starts, counts, pmax: int, dxi2, dt):
     (A, 216, 12) float32; starts, counts: (A,) int32.  Layout as the plain
     version."""
     A = starts.shape[0]
-    _check("packed", packed)
-    if packed.dim() != 2 or packed.shape[1] < PACKED_COLS:
-        raise ValueError(f"packed: expected (n, >=40), got {tuple(packed.shape)}")
+    _check_rows(packed, PACKED_COLS)
     _check("vel_ext", vel_ext, shape=(A, P2G_NODES, G2P_VEL_CH), device=packed.device)
+    if vel_ext.data_ptr() % 16:
+        raise ValueError("vel_ext: storage must be 16-byte aligned")
     _check("starts", starts, torch.int32, (A,), packed.device)
     _check("counts", counts, torch.int32, (A,), packed.device)
     out = torch.empty((A, pmax, G2P_OUT), dtype=torch.float32, device=packed.device)

@@ -79,7 +79,7 @@ def convert():
 def _port(convert, jconfig, jstate):
     return (
         convert.config_from_reference(dataclasses.asdict(jconfig)),
-        convert.state_from_numpy(_to_numpy(jstate)),
+        convert.state_from_numpy(_to_numpy(jstate), device="cpu"),
     )
 
 
@@ -108,7 +108,9 @@ def test_make_particle_block_bit_identical(T, convert, dtype):
     jconfig = _jax_config()
     tconfig = convert.config_from_reference(dataclasses.asdict(jconfig))
     js = J.make_particle_block(jconfig, LO, HI, dtype=getattr(np, dtype))
-    ts = T.make_particle_block(tconfig, LO, HI, dtype=getattr(torch, dtype))
+    ts = T.make_particle_block(
+        tconfig, LO, HI, dtype=getattr(torch, dtype), device="cpu"
+    )
     assert ts.x.shape == (4096, 3)
     for name, ref in _to_numpy(js).items():
         got = getattr(ts, name).numpy()
@@ -198,6 +200,65 @@ def test_simulate_matches_jax_over_20_substeps(T, scene):
     _assert_state_close(got, ref)
 
 
+def _jax_block_table(jconfig, jstate):
+    """(active, starts, counts, dropped) of the JAX package's block sort, as
+    particle_to_grid_blocked makes them (drake_tpu/mpm/solver.py: sort by
+    block id, fixed-size unique, searchsorted, clamp to the capacity)."""
+    nx, ny, nz = jconfig.grid_size
+    nby, nbz = ny // 4, nz // 4
+    nblocks = (nx // 4) * nby * nbz
+    base, _ = J._bspline_weights(jstate.x, jconfig.dx)
+    base = jnp.clip(base, 0, jnp.asarray([nx - 3, ny - 3, nz - 3]))
+    bxyz = base // 4
+    bid = np.sort(np.asarray((bxyz[:, 0] * nby + bxyz[:, 1]) * nbz + bxyz[:, 2]))
+    active = np.asarray(
+        jnp.unique(jnp.asarray(bid), size=jconfig.max_active_blocks, fill_value=nblocks)
+    )
+    starts = np.searchsorted(bid, active, side="left")
+    counts = np.searchsorted(bid, active, side="right") - starts
+    counts = np.where(active < nblocks, np.minimum(counts, jconfig.block_capacity), 0)
+    return active, starts, counts, bid.shape[0] - counts.sum()
+
+
+@pytest.mark.parametrize("max_active_blocks, block_capacity", [(64, 512), (8, 512), (64, 100)])
+def test_sort_particles_block_table_and_cell_order(
+    T, convert, max_active_blocks, block_capacity
+):
+    """The (block, cell) sort key leaves the block table as the JAX package's
+    sort by block makes it -- also when blocks or particles are dropped -- and
+    orders every block's rows by local base cell, x slowest and z fastest."""
+    jconfig = dataclasses.replace(
+        _jax_config(), max_active_blocks=max_active_blocks, block_capacity=block_capacity
+    )
+    jstate = _jax_state(jconfig)
+    tconfig, tstate = _port(convert, jconfig, jstate)
+    active, starts, counts, dropped = _jax_block_table(jconfig, jstate)
+    # The JAX substep reports the same count.
+    ref = jax.jit(functools.partial(J.particle_to_grid_blocked, jconfig))(jstate)
+    assert int(ref.dropped) == dropped
+
+    sort = T.sort_particles(tconfig, tstate)
+    np.testing.assert_array_equal(sort.active.numpy(), active)
+    np.testing.assert_array_equal(sort.starts.numpy(), starts)
+    np.testing.assert_array_equal(sort.counts.numpy(), counts)
+    assert int(sort.dropped) == dropped
+    assert (dropped > 0) == ((max_active_blocks, block_capacity) != (64, 512))
+
+    packed = sort.packed.numpy()
+    n = packed.shape[0]
+    assert sorted(sort.perm.tolist()) == list(range(n))
+    np.testing.assert_array_equal(packed[:, 28:31], tstate.x.numpy()[sort.perm.numpy()])
+    lb = packed[:, 25:28]
+    assert set(np.unique(lb)) <= {0.0, 1.0, 2.0, 3.0}
+    cell = lb[:, 0] * 16 + lb[:, 1] * 4 + lb[:, 2]
+    nblocks = 8 * 8 * 8
+    for a in np.flatnonzero(active < nblocks):
+        end = np.searchsorted(sort.bid.numpy()[sort.perm.numpy()], active[a], side="right")
+        run = cell[starts[a]:end]  # the whole block, dropped rows included
+        assert (np.diff(run) >= 0).all(), f"block {active[a]}"
+        assert len(np.unique(run)) > 1
+
+
 @pytest.mark.parametrize("substep", ["particle_to_grid_blocked", "mpm_substep_blocked"])
 def test_capacity_drops_counted_as_in_jax(T, convert, substep):
     """With max_active_blocks too small, the first A blocks in sorted order
@@ -231,5 +292,7 @@ def test_convert_round_trip(convert, scene):
     for name, ref in _to_numpy(jstate).items():
         np.testing.assert_array_equal(back[name], ref, err_msg=name)
         assert back[name].dtype == ref.dtype, name
-    f32 = convert.state_from_numpy(_to_numpy(jstate), dtype=torch.float32)
+    f32 = convert.state_from_numpy(
+        _to_numpy(jstate), device="cpu", dtype=torch.float32
+    )
     assert f32.x.dtype == torch.float32 and f32.dropped.dtype == torch.int32

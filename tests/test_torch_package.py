@@ -84,7 +84,9 @@ def test_cpu_path_launches_no_kernel():
         grid_size=(16, 16, 16), dx=1.0 / 16, dt=1e-4,
         max_active_blocks=16, block_capacity=512,
     )
-    state = T.make_particle_block(config, (0.4, 0.4, 0.4), (0.6, 0.6, 0.6))
+    state = T.make_particle_block(
+        config, (0.4, 0.4, 0.4), (0.6, 0.6, 0.6), device="cpu"
+    )
     state = T.simulate(config, state, 2)
     state = T.mpm_substep_blocked(config, state)
     assert int(state.dropped) == 0
@@ -104,6 +106,41 @@ def test_library_name_follows_source_hash():
     src = _build.SOURCE.read_text()
     for name in _build.SIGNATURES:
         assert f"int {name}(" in src
+
+
+@pytest.mark.parametrize(
+    "name", ["mpm_update_grid", "mpm_p2g_block", "mpm_p2g_block_probe", "mpm_g2p_block"]
+)
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """The argtypes a wrapper declares have the arity and the pointer, int
+    and float kinds of the C entry point's parameters (a mismatch would cut
+    a pointer to 32 bits or shift every later argument)."""
+    import ctypes
+    import re
+
+    from drake_tpu_torch.ops import _build
+
+    src = _build.SOURCE.read_text()
+    params = re.search(rf"\nint {name}\((.*?)\)\s*\{{", src, re.S).group(1)
+    kinds = []
+    for param in params.split(","):
+        ctype = param.rsplit(None, 1)[0]
+        kinds.append(
+            ctypes.c_void_p if "*" in ctype
+            else ctypes.c_float if ctype.strip() == "float" else ctypes.c_int
+        )
+    assert list(_build.SIGNATURES[name]) == kinds
+
+
+def test_probe_stamps_match_the_kernel():
+    import re
+
+    from drake_tpu_torch.ops import _build
+    from drake_tpu_torch.ops import mpm_kernels as mk
+
+    src = _build.SOURCE.read_text()
+    assert int(re.search(r"kP2GStamps = (\d+);", src).group(1)) == mk.P2G_STAMPS
+    assert set(_build.SIGNATURES) == set(re.findall(r"\nint (mpm_\w+)\(", src))
 
 
 def test_tensor_dataclass_replace_and_to():
@@ -134,7 +171,9 @@ def test_state_to_moves_floats_only():
     from drake_tpu_torch.mpm import solver as T
 
     config = T.MpmConfig(grid_size=(16, 16, 16), dx=1.0 / 16)
-    s = T.make_particle_block(config, (0.4, 0.4, 0.4), (0.5, 0.5, 0.5), dtype=torch.float64)
+    s = T.make_particle_block(
+        config, (0.4, 0.4, 0.4), (0.5, 0.5, 0.5), dtype=torch.float64, device="cpu"
+    )
     s32 = s.to(dtype=torch.float32)
     for f in ("x", "v", "F", "C", "volume", "mass"):
         assert getattr(s32, f).dtype == torch.float32
@@ -142,3 +181,74 @@ def test_state_to_moves_floats_only():
             getattr(s32, f).numpy(), getattr(s, f).numpy().astype(np.float32)
         )
     assert s32.dropped.dtype == torch.int32
+
+
+def _tiny_state_arrays(n=4):
+    return {
+        "x": np.full((n, 3), 0.5), "v": np.zeros((n, 3)),
+        "F": np.tile(np.eye(3), (n, 1, 1)), "C": np.zeros((n, 3, 3)),
+        "volume": np.ones(n), "mass": np.ones(n),
+    }
+
+
+def _entry_points():
+    """name -> callable(device) for every entry point that makes tensors."""
+    from drake_tpu_torch.mpm import convert
+    from drake_tpu_torch.mpm import solver as T
+    from drake_tpu_torch.utils.device import resolve_device
+
+    config = T.MpmConfig(grid_size=(16, 16, 16), dx=1.0 / 16)
+    box = ((0.4, 0.4, 0.4), (0.5, 0.5, 0.5))
+
+    def state_default_dropped(device):
+        # The field default of `dropped` takes no device: only None applies.
+        import torch
+
+        z = torch.zeros(1)
+        return T.MpmState(x=z, v=z, F=z, C=z, volume=z, mass=z)
+
+    return {
+        "resolve_device": lambda device: resolve_device(device),
+        "make_particle_block": lambda device: T.make_particle_block(
+            config, *box, device=device
+        ),
+        "state_from_numpy": lambda device: convert.state_from_numpy(
+            _tiny_state_arrays(), device=device
+        ),
+        "MpmState.dropped": state_default_dropped,
+    }
+
+
+ENTRY_POINTS = ["resolve_device", "make_particle_block", "state_from_numpy", "MpmState.dropped"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_no_device_means_the_card_never_the_cpu(name):
+    """With no `device`, an entry point places its tensors on the current
+    CUDA device; on a machine without one it raises and makes no CPU
+    tensor."""
+    import torch
+
+    make = _entry_points()[name]
+    if torch.cuda.is_available():
+        got = make(None)
+        device = got if isinstance(got, torch.device) else got.dropped.device
+        assert device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(None)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS[:3])
+@pytest.mark.parametrize("device", ["cpu", "torch.device"])
+def test_device_cpu_is_honoured(name, device):
+    import torch
+
+    want = torch.device("cpu")
+    got = _entry_points()[name]("cpu" if device == "cpu" else want)
+    if isinstance(got, torch.device):
+        assert got == want
+        return
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name).device == want, f.name
+    assert got.dropped.dtype == torch.int32 and int(got.dropped) == 0
