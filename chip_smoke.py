@@ -12,7 +12,9 @@ Phases (each prints its lines; any failure exits 1):
    scene (v and F perturbed from a fixed seed so that every channel is live)
    at both sizes, and at the small size with the capacities cut: blocks that
    overflow ``block_capacity`` (counts clamped to a pmax that is no multiple
-   of a kernel's chunk) and blocks beyond ``max_active_blocks``;
+   of a kernel's chunk) and blocks beyond ``max_active_blocks``; and hold K2
+   to its contract on the rows' order: a block whose rows are not sorted by
+   cell comes out as NaN, every other block as before;
 3. drive the main path -- ``simulate`` (K2 + K1) and ``mpm_substep_blocked``
    (K2 + K1 + K3), 200 substeps each, and the same two with
    ``xla_only=True`` (the plain versions) -- on the elastic-block scene of
@@ -26,8 +28,7 @@ Phases (each prints its lines; any failure exits 1):
 
 ``python3 chip_smoke.py --profile`` adds a fifth phase: ``torch.profiler``
 over 20 substeps of each kernel path, for the device time, the busy share
-and the kernel count of a substep, and K2's own clocks: the cycles a CTA
-spends in each of its phases.
+and the kernel count of a substep.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
@@ -57,7 +58,9 @@ PEAK_F32_FLOPS = 67e12
 # enough on the card for the host to queue the next call behind it.
 FLUSH_BYTES = 512 * 2**20
 # Spin on the card while the host queues the calls of a timed loop, so that
-# the events bracket back-to-back kernels and not the host's dispatch.
+# the events bracket back-to-back kernels and not the host's dispatch.  The
+# spin is torch.cuda._sleep, a private function of PyTorch (its own tests use
+# it); should it go, any kernel of a few ms in front of the loop does the same.
 SPIN_CYCLES = 5_000_000
 # Kernel vs plain, max |x| and |v| difference after 200 substeps (float32;
 # different summation orders; far below a cell of 1/64).
@@ -149,9 +152,11 @@ def bound_ms(nbytes, flops):
 def kernel_cases(torch, np, mpm, mk, config, state):
     """(name, kernel call, plain call, error bounds, bytes, operations) at
     the substep inputs of `state`, perturbed so that stress, u0 and C are
-    all nonzero.  Bytes count every input read once and every output written
-    once (K2 reads packed columns 0:28, K3 all 40); operations count the
-    float32 multiplies and adds of the taken particles."""
+    all nonzero.  Bytes count what the function needs of every input, read
+    once, and every output written once: K2 uses packed columns 0:28, K3
+    columns 16:40 (taps, base, x, F) and every block's window, those of
+    blocks without particles too.  Operations count the float32 multiplies
+    and adds of the taken particles."""
     rng = np.random.default_rng(SEED)
     n = state.x.shape[0]
     dev = state.x.device
@@ -197,7 +202,7 @@ def kernel_cases(torch, np, mpm, mk, config, state):
     table_bytes = 2 * A * 4  # starts and counts
     k1_bytes = 4 * (mass.numel() + 2 * mom.numel())
     k2_bytes = 4 * (n * 28 + A * mk.P2G_NV * mk.P2G_NODES) + table_bytes
-    k3_bytes = 4 * (sort.packed.numel() + vel_ext.numel()
+    k3_bytes = 4 * (n * (mk.PACKED_COLS - 16) + vel_ext.numel()
                     + A * pmax * mk.G2P_OUT) + table_bytes
     k1_flops = mass.numel() * 3 * 2
     k2_flops = taken * 27 * (2 + 2 * 13)
@@ -288,45 +293,31 @@ def profile_paths(torch, mpm, scales, card):
                               f"x {a.count} [{card}]")
 
 
-def probe_k2(torch, np, mpm, mk, scales, card):
-    """K2's own clocks (``p2g_block_cuda(probe=True)``) at the bench scene:
-    SM cycles a CTA spends between its phase boundaries, as medians over the
-    fullest blocks and over all blocks with particles, for the CTAs of the
-    first wave and for those that start later, and the kernel's span on the
-    device timer."""
-    names = mk.P2G_STAMP_NAMES
-    for scale, (config, state) in scales.items():
-        sort = mpm.sort_particles(config, state)
-        args = (sort.packed, sort.starts, sort.counts, config.block_capacity)
-        for _ in range(3):  # the last of three back-to-back launches is read
-            _, stamps = mk.p2g_block_cuda(*args, probe=True)
-        torch.cuda.synchronize()
-        s = stamps.cpu().numpy().astype(np.float64)
-        counts = sort.counts.cpu().numpy()
-        entry_us = (s[:, 8] - s[:, 8].min()) / 1e3
-        exit_us = (s[:, 9] - s[:, 8].min()) / 1e3
-        loaded = counts > 0
-        fullest = counts >= 0.95 * counts.max()
-        first_wave = entry_us < 1.0
-        tag = f"[probe scale={scale} n={state.x.shape[0]}] p2g_block_kernel"
-        line = (f"{tag}: span {float(exit_us.max())!r} us, {int(loaded.sum())} CTAs with "
-                f"particles ({int((loaded & ~first_wave).sum())} enter after 1 us)")
-        if (~loaded).any():
-            line += (f", {int((~loaded).sum())} without (median "
-                     f"{float(np.median((exit_us - entry_us)[~loaded]))!r} us each, "
-                     f"entering from {float(entry_us[~loaded].min())!r} us)")
-        print(f"{line} [{card}]")
-        steps = np.diff(s[:, :8], axis=1)
-        for label, group in (("fullest blocks", fullest), ("blocks with particles", loaded)):
-            for wave, sel in (("first wave", group & first_wave), ("later", group & ~first_wave)):
-                if not sel.any():
-                    continue
-                med = np.median(steps[sel], axis=0)
-                print(f"{tag}: {label}, {wave} ({int(sel.sum())} CTAs, median rows "
-                      f"{float(np.median(counts[sel]))!r}): cycles to "
-                      + ", ".join(f"{name} {m:.0f}" for name, m in zip(names[1:8], med))
-                      + f"; entry to exit {np.median(s[sel, 7] - s[sel, 0]):.0f} cycles, "
-                      f"{float(np.median((exit_us - entry_us)[sel]))!r} us [{card}]")
+def order_contract(torch, mpm, mk, config, state):
+    """K2 on rows that break its contract: the fullest block's rows reversed,
+    so that they stay that block's but are no longer sorted by cell.  The
+    kernel must answer that block with NaN in its 13 live channels and every
+    other block exactly as on the sorted rows."""
+    sort = mpm.sort_particles(config, state)
+    a = int(sort.counts.argmax())
+    first, count = int(sort.starts[a]), int(sort.counts[a])
+    cells = sort.packed[first:first + count, 25:28]
+    check(bool((cells != cells[0]).any()), "the fullest block holds one cell only")
+    rows = torch.arange(state.x.shape[0], device=sort.packed.device)
+    rows[first:first + count] = rows[first:first + count].flip(0)
+    args = (sort.starts, sort.counts, config.block_capacity)
+    good = mk.p2g_block_cuda(sort.packed, *args)
+    bad = mk.p2g_block_cuda(sort.packed[rows].contiguous(), *args)
+    torch.cuda.synchronize()
+    others = torch.ones(sort.starts.shape[0], dtype=torch.bool, device=good.device)
+    others[a] = False
+    check(bool(torch.isfinite(good).all()), "p2g_block: non-finite on sorted rows")
+    check(bool(torch.isnan(bad[a, :13]).all()) and bool((bad[a, 13:] == 0).all()),
+          "p2g_block: a block out of cell order was not marked NaN")
+    check(torch.equal(bad[others], good[others]),
+          "p2g_block: a block out of cell order changed another block")
+    print(f"[parity n={state.x.shape[0]}] p2g_block: block {a} ({count} rows) reversed "
+          f"-> NaN in its channels 0:13, the other {int(others.sum())} blocks unchanged ok")
 
 
 def main(argv) -> int:
@@ -386,6 +377,7 @@ def main(argv) -> int:
     for cut in (dict(block_capacity=200), dict(max_active_blocks=8)):
         dropped = parity(1, dataclasses.replace(config1, **cut), state1)
         check(dropped > 0, f"{cut} dropped no particle: the case tests nothing")
+    order_contract(torch, mpm, mk, config1, state1)
     for scale, (config, state) in scales.items():
         check(parity(scale, config, state) == 0, "the bench scene dropped particles")
         # Warm-up of every path before the counted run.
@@ -456,19 +448,18 @@ def main(argv) -> int:
             cold = time_cold_ms(torch, kernel, KERNEL_REPS, flush)
             least, bound_by = bound_ms(nbytes, flops)
             timed[name] = {
-                "ms": min(warm), "cold_ms": cold, "plain_ms": min(p_ms),
+                "ms": sum(warm) / 2, "cold_ms": cold, "plain_ms": sum(p_ms) / 2,
                 "bound_ms": least, "bound_by": bound_by,
             }
             print(f"[time scale={scale} n={n}] {name}: kernel warm {warm!r} ms, "
                   f"cold {cold!r} ms, plain {p_ms!r} ms, bound {least!r} ms "
                   f"({nbytes} bytes, {flops} operations: {bound_by}), share of "
-                  f"bound warm {least / min(warm):.3f} cold {least / cold:.3f} [{card}]")
+                  f"bound warm {least * 2 / sum(warm):.3f} cold {least / cold:.3f} [{card}]")
     del flush
 
     # ---- 5. profile (on request) --------------------------------------------
     if "--profile" in argv:
         profile_paths(torch, mpm, scales, card)
-        probe_k2(torch, np, mpm, mk, scales, card)
 
     # Times are those of the larger size (the last timed); no single PyTorch
     # call computes any of the three functions, so library_ms is null.

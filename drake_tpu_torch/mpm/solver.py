@@ -87,10 +87,6 @@ class MpmConfig:
         return mu, lam
 
 
-def _zero_dropped():
-    return torch.zeros((), dtype=torch.int32, device=resolve_device())
-
-
 @tensor_dataclass
 class MpmState:
     """Particle state (SoA, like GpuMpmState's particle buffers)."""
@@ -103,8 +99,13 @@ class MpmState:
     mass: torch.Tensor  # (n,)
     # Particles dropped by the blocked path's static capacities in the LAST
     # substep (scalar int32 tensor on the state's device); nonzero means the
-    # capacities are undersized.
-    dropped: torch.Tensor = dataclasses.field(default_factory=_zero_dropped)
+    # capacities are undersized.  Left out, it is a zero on the device of `x`.
+    dropped: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.dropped is None:
+            zero = torch.zeros((), dtype=torch.int32, device=self.x.device)
+            object.__setattr__(self, "dropped", zero)
 
 
 def make_particle_block(

@@ -31,7 +31,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mpm_update_grid": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "mpm_p2g_block": (_P, _I, _I, _P, _P, _I, _I, _P, _P),
-    "mpm_p2g_block_probe": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P),
     "mpm_g2p_block": (_P, _I, _I, _P, _P, _P, _I, _I, _F, _F, _P, _P),
 }
 

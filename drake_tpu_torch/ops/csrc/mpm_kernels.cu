@@ -29,7 +29,6 @@ constexpr int kP2GThreads = 512;    // 16 warps, one per (ly, lz) cell column
 constexpr int kP2GStageRows = 256;  // particle rows per staged chunk (K2)
 constexpr int kP2GRowVec = 7;       // float4 per staged row: packed 0:28
 constexpr int kP2GColNodes = 54;    // 3 x 3 x 6 window nodes of a cell column
-constexpr int kP2GStamps = 10;      // clock readings a CTA of the probed K2 writes
 // Two stages of rows and 16 columns' sums: dynamic shared memory (above the
 // 48 KB static limit), sized so that two CTAs fit an SM.
 constexpr int kP2GSmemBytes = 2 * kP2GStageRows * kP2GRowVec * 16 +
@@ -125,11 +124,8 @@ __global__ void update_grid_kernel(const float* __restrict__ mass,
 // that cover its node, in a fixed order, and is written once: one owner per
 // element, a fixed summation order, deterministic, no atomics.  A block with
 // no particle only writes zeros.  The halo combine into the dense grid stays
-// in PyTorch.
-//
-// kProbe: thread 0 also writes the clock at each phase boundary, and the
-// device timer at entry and exit, into `stamps` (kP2GStamps a CTA); only
-// mpm_p2g_block_probe instantiates it.
+// in PyTorch.  The walk relies on the rows' order: a block whose rows are not
+// sorted by cell gets NaN in its 13 live channels instead of wrong sums.
 __device__ __forceinline__ void p2g_stage_chunk(float4* dst,
                                                 const float* __restrict__ packed,
                                                 int64_t first_row, int ld,
@@ -161,36 +157,19 @@ __device__ __forceinline__ void p2g_slide(float (&acc)[3][9], float* done,
   }
 }
 
-template <bool kProbe>
-__device__ __forceinline__ void p2g_stamp(long long* stamps, int slot) {
-  if constexpr (kProbe) {
-    if (threadIdx.x == 0) stamps[blockIdx.x * kP2GStamps + slot] = clock64();
-  }
-}
-
-template <bool kProbe>
-__device__ __forceinline__ void p2g_stamp_timer(long long* stamps, int slot) {
-  if constexpr (kProbe) {
-    if (threadIdx.x == 0) {
-      unsigned long long ns;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-      stamps[blockIdx.x * kP2GStamps + slot] = static_cast<long long>(ns);
-    }
-  }
-}
-
-template <bool kProbe>
 __global__ void __launch_bounds__(kP2GThreads, 2)
 p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
                  const int* __restrict__ starts,
                  const int* __restrict__ counts, int pmax,
-                 float* __restrict__ out, long long* __restrict__ stamps) {
-  p2g_stamp_timer<kProbe>(stamps, 8);
-  p2g_stamp<kProbe>(stamps, 0);
+                 float* __restrict__ out) {
   // [2][kP2GStageRows * kP2GRowVec] float4 of rows, then the warps' column
   // sums [16][kP2GLive][kP2GColNodes] float.
   extern __shared__ float4 smem[];
   __shared__ int cell_start[65];
+  // The last cell of each of the two chunks walked last, and whether any row
+  // came before its predecessor in cell order.
+  __shared__ int last_cell[2];
+  __shared__ int out_of_order;
   static_assert(kP2GStageRows < kP2GThreads, "one thread per staged row + 1");
   constexpr int kStageVec = kP2GStageRows * kP2GRowVec;
   constexpr int kLive = kP2GLive * kNodes;  // floats of the live channels
@@ -206,18 +185,17 @@ p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
   for (int e = first_zero + tid; e < kP2GChannels * kNodes / 4; e += kP2GThreads) {
     reinterpret_cast<float4*>(o)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  if (count == 0) {
-    p2g_stamp<kProbe>(stamps, 7);
-    p2g_stamp_timer<kProbe>(stamps, 9);
-    return;
-  }
+  if (count == 0) return;
 
   const int nchunks = (count + kP2GStageRows - 1) / kP2GStageRows;
   p2g_stage_chunk(rows, packed, start, ld, min(kP2GStageRows, count));
   cp_async_commit();
   // Rows out of cell order leave entries unset; 0 keeps them in the stage.
   if (tid < 65) cell_start[tid] = 0;
-  p2g_stamp<kProbe>(stamps, 1);
+  if (tid == 0) {
+    last_cell[1] = -1;  // chunk 0 compares its first row with this
+    out_of_order = 0;
+  }
 
   const int warp = tid >> 5, lane = tid & 31;
   // Lanes 13..15 of a half-warp repeat channel 12 and store nothing.
@@ -244,7 +222,6 @@ p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
     cp_async_commit();
     cp_async_wait<1>();  // this chunk has landed; the next may be in flight
     __syncthreads();
-    if (ch == 0) p2g_stamp<kProbe>(stamps, 2);
     const float4* chunk = rows + (ch & 1) * kStageVec;
     // cell_start[c] = first staged row of cell c or later, from the sorted
     // local bases of the rows: row r sets the entries of the cells that begin
@@ -254,9 +231,12 @@ p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
       if (tid > 0) prev = p2g_cell(chunk[(tid - 1) * kP2GRowVec + 6]);
       if (tid < nrows) cur = p2g_cell(chunk[tid * kP2GRowVec + 6]);
       for (int cell = prev + 1; cell <= cur; ++cell) cell_start[cell] = tid;
+      // The walk needs every row at or after its predecessor's cell, across
+      // chunks too (the first row against the last of the chunk before).
+      if (cur < (tid > 0 ? prev : last_cell[(ch & 1) ^ 1])) out_of_order = 1;
+      if (tid == nrows) last_cell[ch & 1] = prev;
     }
     __syncthreads();
-    if (ch == 0) p2g_stamp<kProbe>(stamps, 3);
     for (int x = 0; x < 4; ++x) {
       const int r_begin = cell_start[16 * x + warp];
       const int r_end = min(cell_start[16 * x + warp + 1], nrows);
@@ -285,13 +265,10 @@ p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
         }
       }
     }
-    if (ch == 0) p2g_stamp<kProbe>(stamps, 4);
     __syncthreads();  // chunk and cell_start are free for the next round
   }
-  p2g_stamp<kProbe>(stamps, 5);
   for (; lx < 6; ++lx) p2g_slide(acc, mine + lx, store);
   __syncthreads();
-  p2g_stamp<kProbe>(stamps, 6);
 
   // Window node (i, j, k) is tap (dy, dz) of column (j - dy, k - dz) where
   // that column exists; the nine are added in a fixed order.  Two threads a
@@ -307,6 +284,7 @@ p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
         covers[dy][dz] = j - dy >= 0 && j - dy <= 3 && k - dz >= 0 && k - dz <= 3;
       }
     }
+    const bool unsorted = out_of_order != 0;
     for (int ch = tid / kNodes; ch < kP2GLive; ch += 2) {
       // Tap (0, 0) of column (j, k); the others sit at fixed offsets from it.
       const float* at = part + ((j * 4 + k) * kP2GLive + ch) * kP2GColNodes + i;
@@ -321,18 +299,16 @@ p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
           }
         }
       }
-      o[ch * kNodes + node] = sum;
+      o[ch * kNodes + node] = unsorted ? __int_as_float(0x7fc00000) : sum;
     }
   }
-  p2g_stamp<kProbe>(stamps, 7);
-  p2g_stamp_timer<kProbe>(stamps, 9);
 }
 
 // K3 -- blocked G2P.  Replaces _g2p_block_kernel (drake_tpu/ops/
 // mpm_kernels.py:536), which rebuilt the factorised weights per block in
 // VMEM and contracted them with the block's node-velocity window on the MXU.
-// Bound on this card: bytes -- the packed rows and the (A, 216, 12) windows
-// read once and the (A, pmax, 24) output written once, of which the zeros of
+// Bound on this card: bytes -- packed columns 16:40 (96 B a particle) and the
+// (A, 216, 12) windows read once and the (A, pmax, 24) output written once, of which the zeros of
 // empty slots and empty blocks are the larger part; 27 taps x 12 channels of
 // FMAs a particle are far below that.  Design: one CTA per active block.  A
 // block with no particle only writes zeros, as float4.  Otherwise the
@@ -487,20 +463,6 @@ g2p_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
   }
 }
 
-template <bool kProbe>
-int launch_p2g_block(const float* packed, int n_rows, int ld, const int* starts,
-                     const int* counts, int num_blocks, int pmax, float* out,
-                     long long* stamps, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      p2g_block_kernel<kProbe>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kP2GSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  p2g_block_kernel<kProbe><<<num_blocks, kP2GThreads, kP2GSmemBytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      packed, n_rows, ld, starts, counts, pmax, out, stamps);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -520,16 +482,14 @@ int mpm_update_grid(const float* mass, const float* mom, float* vel, int nx,
 int mpm_p2g_block(const float* packed, int n_rows, int ld, const int* starts,
                   const int* counts, int num_blocks, int pmax, float* out,
                   void* stream) {
-  return launch_p2g_block<false>(packed, n_rows, ld, starts, counts, num_blocks,
-                                 pmax, out, nullptr, stream);
-}
-
-// The same kernel with its phase clocks: stamps is (num_blocks, 10) int64.
-int mpm_p2g_block_probe(const float* packed, int n_rows, int ld,
-                        const int* starts, const int* counts, int num_blocks,
-                        int pmax, float* out, long long* stamps, void* stream) {
-  return launch_p2g_block<true>(packed, n_rows, ld, starts, counts, num_blocks,
-                                pmax, out, stamps, stream);
+  const cudaError_t err = cudaFuncSetAttribute(
+      p2g_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kP2GSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p2g_block_kernel<<<num_blocks, kP2GThreads, kP2GSmemBytes,
+                     static_cast<cudaStream_t>(stream)>>>(
+      packed, n_rows, ld, starts, counts, pmax, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int mpm_g2p_block(const float* packed, int n_rows, int ld,

@@ -14,8 +14,10 @@ went through the kernels.
 The packed particle row keeps the JAX package's column meaning but is 40
 wide instead of 128 (no TPU lane padding): 0:16 values [m, u0 (3), B (9),
 pad (3)], 16:25 B-spline taps, 25:28 local base, 28:31 x, 31:40 F.  Rows are
-sorted by block; the K2 kernel also needs them sorted by local base within a
-block (``sort_particles`` does both), the plain versions do not.  The TPU's
+sorted by block and, within a block, by local base (``sort_particles`` does
+both).  The second order is part of ``p2g_block``'s contract: the K2 kernel
+walks each cell's rows as one run and answers a block that breaks the order
+with NaN, while the plain version adds the rows in any order.  The TPU's
 8-row DMA alignment (``align_starts``/``align_window``), its custom_vmap batch
 folding and the MXU weight factorisation have no counterpart here.
 """
@@ -33,16 +35,6 @@ P2G_NODES = 216  # 6^3 block-window nodes
 G2P_VEL_CH = 12  # [v(3), v*node_x(3), v*node_y(3), v*node_z(3)]
 G2P_OUT = 24  # [x_new(3), v_new(3), F_new(9), C_new(9)]
 PACKED_COLS = 40
-# Columns of the K2 probe's stamps: clock cycles at entry, first copy started,
-# first chunk landed, its cell runs found, warp 0 done with it, every chunk
-# walked, column sums complete, exit; then the device timer (ns) at entry and
-# exit.  A CTA without particles writes only entry and exit.
-P2G_STAMP_NAMES = (
-    "entry", "copy_started", "landed", "cells_found", "chunk0_walked", "walked",
-    "columns_done", "exit", "timer_entry_ns", "timer_exit_ns",
-)
-P2G_STAMPS = len(P2G_STAMP_NAMES)
-
 LAUNCHES = {"update_grid": 0, "p2g_block": 0, "g2p_block": 0}
 
 
@@ -204,53 +196,52 @@ def _window_weights(pk, valid):
 def p2g_block_reference(packed, starts, counts, pmax: int):
     """Plain version.  packed: (n, >=28) rows sorted by block; starts, counts:
     (A,).  Returns (A, 16, 216): for each block, the sum over its particles of
-    the 16 value channels times each window node's B-spline weight."""
+    the 16 value channels times each window node's B-spline weight.
+
+    ``p2g_block`` also requires the rows of a block sorted by local base; this
+    version does not use that order and does not check it."""
     pk, valid = _gather_blocks(packed, starts, counts, pmax)
     Vb = pk[..., 0:P2G_NV] * valid[..., None]
     return torch.einsum("apv,apl->avl", Vb, _window_weights(pk, valid))
 
 
-def p2g_block_cuda(packed, starts, counts, pmax: int, probe=False):
+def p2g_block_cuda(packed, starts, counts, pmax: int):
     """Launch K2 (``p2g_block_kernel``).  packed: (n, >=28) float32; starts,
     counts: (A,) int32.  Channels 0:13 as the plain version; the pad channels
     13:16 are written 0 (the solver's packed rows carry zeros there).
 
-    The kernel finds each cell's rows as one run, so within a block the rows
+    The kernel walks each cell's rows as one run, so within a block the rows
     must be sorted by the local base (columns 25:28, x slowest), as
-    ``sort_particles`` sorts them; the plain version takes any order.
-
-    ``probe=True`` launches the kernel's instrumented build and returns
-    ``(out, stamps)``: stamps is (A, P2G_STAMPS) int64, one row a CTA, named
-    by ``P2G_STAMP_NAMES`` (SM clock cycles at the phase boundaries of a CTA
-    with particles, then the device timer in ns at entry and exit)."""
+    ``sort_particles`` sorts them.  A block whose rows break that order gets
+    NaN in channels 0:13, not a wrong sum."""
     A = starts.shape[0]
     _check_rows(packed, 28)
     _check("starts", starts, torch.int32, (A,), packed.device)
     _check("counts", counts, torch.int32, (A,), packed.device)
     out = torch.empty((A, P2G_NV, P2G_NODES), dtype=torch.float32, device=packed.device)
-    stamps = None
-    if probe:
-        stamps = torch.zeros((A, P2G_STAMPS), dtype=torch.int64, device=packed.device)
     if A == 0:
-        return (out, stamps) if probe else out
+        return out
     lib = _build.load_library()
-    args = (
-        packed.data_ptr(), packed.shape[0], packed.shape[1],
-        starts.data_ptr(), counts.data_ptr(), A, int(pmax), out.data_ptr(),
-    )
     with torch.cuda.device(packed.device):
-        if probe:
-            rc = lib.mpm_p2g_block_probe(*args, stamps.data_ptr(), _stream(packed.device))
-        else:
-            rc = lib.mpm_p2g_block(*args, _stream(packed.device))
+        rc = lib.mpm_p2g_block(
+            packed.data_ptr(), packed.shape[0], packed.shape[1],
+            starts.data_ptr(), counts.data_ptr(), A, int(pmax), out.data_ptr(),
+            _stream(packed.device),
+        )
     _raise_on_error("p2g_block", rc)
     LAUNCHES["p2g_block"] += 1
-    return (out, stamps) if probe else out
+    return out
 
 
 def p2g_block(packed, starts, counts, pmax: int, plain=False):
     """Dispatcher: plain version for CPU tensors or ``plain=True``, K2 for
-    CUDA tensors."""
+    CUDA tensors.
+
+    Contract on the rows, whichever version runs: sorted by block (each block
+    the run ``starts[a] : starts[a] + counts[a]``) and, within a block, by
+    local base (columns 25:28, x slowest, z fastest), as ``sort_particles``
+    gives them.  Rows that break the second order are outside the contract:
+    the kernel marks such a block with NaN, the plain version cannot tell."""
     if plain or packed.device.type == "cpu":
         return p2g_block_reference(packed, starts, counts, pmax)
     return p2g_block_cuda(packed, starts, counts, pmax)

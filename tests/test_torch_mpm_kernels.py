@@ -120,6 +120,27 @@ def test_p2g_block_matches_jax_reference(jmk, tmk, dtype):
     )
 
 
+def test_p2g_block_plain_takes_any_order_within_a_block(tmk):
+    """The plain version sums a block's rows whatever their order: rows
+    sorted by local base (what the kernel requires) and the same rows
+    shuffled within each block give the same sums."""
+    rng = np.random.default_rng(5)
+    n, pmax, _, counts = _blocks()
+    starts = np.arange(8, dtype=np.int32) * 64  # disjoint runs
+    shuffled = _random_packed(rng, n, np.float64)
+    ordered = shuffled.copy()
+    for s, c in zip(starts, counts):
+        rows = shuffled[s:s + c]
+        cell = (rows[:, 25] * 4 + rows[:, 26]) * 4 + rows[:, 27]
+        ordered[s:s + c] = rows[np.argsort(cell, kind="stable")]
+    assert not np.array_equal(ordered, shuffled)
+    args = (_t(starts), _t(counts), pmax)
+    np.testing.assert_allclose(
+        tmk.p2g_block(_t(shuffled), *args).numpy(),
+        tmk.p2g_block(_t(ordered), *args).numpy(), rtol=0, atol=1e-13,
+    )
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_g2p_block_matches_jax_reference(jmk, tmk, dtype):
     rng = np.random.default_rng(2)

@@ -109,7 +109,7 @@ def test_library_name_follows_source_hash():
 
 
 @pytest.mark.parametrize(
-    "name", ["mpm_update_grid", "mpm_p2g_block", "mpm_p2g_block_probe", "mpm_g2p_block"]
+    "name", ["mpm_update_grid", "mpm_p2g_block", "mpm_g2p_block"]
 )
 def test_ctypes_signature_matches_the_c_entry_point(name):
     """The argtypes a wrapper declares have the arity and the pointer, int
@@ -132,15 +132,50 @@ def test_ctypes_signature_matches_the_c_entry_point(name):
     assert list(_build.SIGNATURES[name]) == kinds
 
 
-def test_probe_stamps_match_the_kernel():
+def test_signatures_cover_every_c_entry_point():
+    import re
+
+    from drake_tpu_torch.ops import _build
+
+    src = _build.SOURCE.read_text()
+    assert set(_build.SIGNATURES) == set(re.findall(r"\nint (mpm_\w+)\(", src))
+
+
+def test_row_layout_constants_match_the_kernel():
+    """The widths the wrappers check and allocate by are those the CUDA
+    source is written for."""
     import re
 
     from drake_tpu_torch.ops import _build
     from drake_tpu_torch.ops import mpm_kernels as mk
 
     src = _build.SOURCE.read_text()
-    assert int(re.search(r"kP2GStamps = (\d+);", src).group(1)) == mk.P2G_STAMPS
-    assert set(_build.SIGNATURES) == set(re.findall(r"\nint (mpm_\w+)\(", src))
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert constant("kNodes") == mk.P2G_NODES
+    assert constant("kP2GChannels") == mk.P2G_NV
+    assert constant("kG2PChannels") == mk.G2P_VEL_CH
+    assert constant("kG2POut") == mk.G2P_OUT
+    # K3 copies packed columns 16:40 and writes 24 floats a row, both as
+    # kG2PRowVec float4.
+    assert 4 * constant("kG2PRowVec") == mk.PACKED_COLS - 16 == mk.G2P_OUT
+
+
+def test_state_dropped_defaults_to_the_device_of_x():
+    """A state made without `dropped` gets its zero beside `x`, whatever the
+    current CUDA device is (and on a machine without one)."""
+    import torch
+
+    from drake_tpu_torch.mpm import solver as T
+
+    z = torch.zeros((2, 3), dtype=torch.float64, device="cpu")
+    s = T.MpmState(x=z, v=z, F=z, C=z, volume=z, mass=z)
+    assert s.dropped.device == z.device
+    assert s.dropped.dtype == torch.int32 and int(s.dropped) == 0
+    kept = torch.ones((), dtype=torch.int32)
+    assert s.replace(dropped=kept).replace(x=z + 1).dropped is kept
 
 
 def test_tensor_dataclass_replace_and_to():
@@ -200,13 +235,6 @@ def _entry_points():
     config = T.MpmConfig(grid_size=(16, 16, 16), dx=1.0 / 16)
     box = ((0.4, 0.4, 0.4), (0.5, 0.5, 0.5))
 
-    def state_default_dropped(device):
-        # The field default of `dropped` takes no device: only None applies.
-        import torch
-
-        z = torch.zeros(1)
-        return T.MpmState(x=z, v=z, F=z, C=z, volume=z, mass=z)
-
     return {
         "resolve_device": lambda device: resolve_device(device),
         "make_particle_block": lambda device: T.make_particle_block(
@@ -215,11 +243,10 @@ def _entry_points():
         "state_from_numpy": lambda device: convert.state_from_numpy(
             _tiny_state_arrays(), device=device
         ),
-        "MpmState.dropped": state_default_dropped,
     }
 
 
-ENTRY_POINTS = ["resolve_device", "make_particle_block", "state_from_numpy", "MpmState.dropped"]
+ENTRY_POINTS = ["resolve_device", "make_particle_block", "state_from_numpy"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -239,7 +266,7 @@ def test_no_device_means_the_card_never_the_cpu(name):
             make(None)
 
 
-@pytest.mark.parametrize("name", ENTRY_POINTS[:3])
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 @pytest.mark.parametrize("device", ["cpu", "torch.device"])
 def test_device_cpu_is_honoured(name, device):
     import torch
