@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of drake_tpu_torch, the PyTorch + CUDA port: the MPM
-substep (slice 1) and the batched iiwa contact-implicit MPC of bench.py
-(slice 2).  Run from the root of a checkout, on a machine with one NVIDIA GPU:
+substep (slice 1), the batched iiwa contact-implicit MPC of bench.py (slice
+2), and the coupled MPM + rigid world with its MPPI controller (slice 3,
+BASELINE config 5).  Run from the root of a checkout, on a machine with one
+NVIDIA GPU:
 
     python3 chip_smoke.py
 
@@ -16,13 +18,13 @@ Phases (each prints its lines; any failure exits 1):
    of a kernel's chunk) and blocks beyond ``max_active_blocks``; and hold K2
    to its contract on the rows' order: a block whose rows are not sorted by
    cell comes out as NaN, every other block as before;
-3. drive the main path -- ``simulate`` (K2 + K1) and ``mpm_substep_blocked``
+3. drive the MPM path -- ``simulate`` (K2 + K1) and ``mpm_substep_blocked``
    (K2 + K1 + K3), 200 substeps each, and the same two with
    ``xla_only=True`` (the plain versions) -- on the elastic-block scene of
    benchmarks/bench_mpm_substeps.py at 17,576 and 132,651 particles; check
    dropped == 0, finite state, free fall (mean v_z = -g t), and kernel vs
    plain agreement in x and v, and count the kernel launches of that run;
-4. time each kernel at the main path's shapes, back to back (inputs warm in
+4. time each kernel at that path's shapes, back to back (inputs warm in
    the L2 cache) and with the cache flushed before every call (cold), beside
    its plain version and its bound: the larger of its bytes over the card's
    memory rate and its operations over the card's float32 rate.
@@ -44,9 +46,36 @@ Then the MPC of ``drake_tpu_torch.bench`` (it reaches none of K1-K3):
    busy share and kernel launches per MPC step, device time per layer (the
    ``record_function`` ranges of the port) and outside every layer.
 
-The last two lines are a JSON object of per-kernel results and
-``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
-device the script exits 1 and prints no result.
+Then the coupled world of ``drake_tpu_torch.benchmarks`` (config 5's paddle
+pushing an MPM blob; K1 and K2 batched over lanes, K3 not on this path):
+
+9. K1 and K2 over 256 and 64 lanes (32^3 grid, A = 64, pmax = 512) against
+   their plain versions, on the coupled world's own state after a few steps
+   with v and F perturbed, timed as in phase 4 (K2 also against the bound
+   of its live blocks and channels only); and lanes of each batched call
+   against the unbatched call on that lane;
+10. parity: 4 lanes through one coupled step (10 substeps, P2G through K2,
+    grid update through K1) and one ``mppi_step`` (2 scenarios x 2 samples,
+    the same perturbations) in float32 on the card against float64 on the
+    CPU: particle x, v, F, C, the rigid state, impulses, the MPPI controls
+    and costs, within the bounds COUPLED_PARITY;
+11. the coupled world bench (``bench_coupled_world.run``): K = 64 rollouts
+    of 10 coupled steps in one call, with the kernels and with
+    ``xla_only=True``: substeps/s, finite state, dropped == 0 in every lane,
+    peak memory, the kernel launches, and kernel vs plain agreement;
+12. config 5 at full width (``bench_coupled_mpc.run``): 32 scenarios x 8
+    MPPI samples = 256 lanes in one call, horizon 10 x 10 substeps, 50 MPC
+    steps after a 1-step warm-up: solves/s, goal reached, median final
+    error, non-finite scenarios, dropped, peak memory, launches, with the
+    gates below (CONFIG5_*);
+    with ``--profile``, ``torch.profiler`` over one coupled step of the 256
+    lanes (per coupled substep) and over one MPC step: device ms, busy
+    share, kernels, the ranges ``coupling.substep``, ``coupling.contact`` and
+    ``coupled.sap_step``, and the K1 and K2 kernels.
+
+The last two lines are a JSON object of per-kernel results (launches by
+path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
+CUDA device the script exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -111,6 +140,48 @@ MPC_MAX_ERR_RATIO = 0.6
 MPC_LAYERS = ("sap.assemble", "sap.newton", "sap.ift_backward", "ilqr.linearize",
               "ilqr.riccati", "ilqr.forward", "mpc.plant_step")
 MPC_TOP_LAYERS = MPC_LAYERS[3:]
+
+# The coupled MPM + rigid world and its MPPI, BASELINE config 5 (phases
+# 9-12; drake_tpu_torch.benchmarks).
+COUPLED_KERNEL_LANES = (256, 64)  # config 5's 32 x 8 lanes; the coupled world's 64
+COUPLED_PREP_STEPS = 3  # coupled steps before phase 9 takes the kernels' inputs
+COUPLED_PREP_FORCE = 15.0  # N on the paddle during them: it presses into the blob
+LANE_CHECKS = 3  # lanes of a batched call held against the unbatched call
+COUPLED_PARITY_LANES = 4
+COUPLED_PARITY_SCENARIOS = 2  # x 2 samples = 4 lanes of one mppi_step
+COUPLED_WORLD_LANES = 64
+COUPLED_HORIZON = 10
+CONFIG5_SCENARIOS = 32
+CONFIG5_SAMPLES = 8
+CONFIG5_STEPS = 50
+CONFIG5_WARMUP_STEPS = 1  # the bench's warm-up rollout
+# Phase 12 gates, fixed before the first run on the card: every scenario
+# finite, no particle dropped, at least half of the 32 scenarios within 6 cm
+# of the goal, median final error at most 6 cm.  The JAX package's TPU record
+# of this configuration (22/32, 0.049 m, other draws) is a quality reference
+# only.
+CONFIG5_MIN_REACHED = 16
+CONFIG5_MAX_MEDIAN_ERR = 0.06
+# Phase 10 bounds, card float32 against CPU float64 on the same program, as
+# a share of the float64 answer's scale (max(1, |x|) for positions, F and
+# the rigid state; max |.| for velocities, impulses, controls and costs).
+# The same comparison between float32 and float64 on a CPU gave the maxima
+# in COUPLED_PARITY_CPU; the bounds leave two orders of magnitude above them.
+COUPLED_PARITY_CPU = {
+    "x": 1.7e-7, "v": 4.0e-6, "F": 5.2e-7, "C": 4.1e-6, "rigid": 5.3e-7,
+    "impulses": 2.8e-6, "u_traj": 3.4e-6, "cost": 2.6e-7,
+}
+COUPLED_PARITY = {
+    "x": 2e-5, "v": 4e-4, "F": 5e-5, "C": 4e-4, "rigid": 5e-5,
+    "impulses": 3e-4, "u_traj": 3e-4, "cost": 3e-5,
+}
+# Phase 11: kernels against plain versions after the whole rollout (64 lanes,
+# 100 substeps), max |x|, |v| and rigid-state difference in float32.  The
+# blocked P2G's plain version against the scatter, both float32 on a CPU
+# over 8 of these lanes, differed by 6.0e-8 (x) and 4.4e-7 (v).
+COUPLED_MAX_DIFF_PATHS = 1e-4
+COUPLED_LAYERS = ("coupling.substep", "coupling.contact", "coupled.sap_step")
+COUPLED_TOP_LAYERS = ("coupling.substep", "coupled.sap_step")
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -186,6 +257,21 @@ def time_cold_ms(torch, fn, reps, flush):
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
+def time_kernel(torch, kernel, plain, flush, nbytes, flops):
+    """Warm (kernel, plain, plain, kernel: both orders within one run) and
+    cold times of a kernel beside its plain version and its bound."""
+    warm = [time_ms(torch, kernel, KERNEL_REPS)]
+    p_ms = [time_ms(torch, plain, KERNEL_REPS), time_ms(torch, plain, KERNEL_REPS)]
+    warm.append(time_ms(torch, kernel, KERNEL_REPS))
+    cold = time_cold_ms(torch, kernel, KERNEL_REPS, flush)
+    least, bound_by = bound_ms(nbytes, flops)
+    line = (f"kernel warm {warm!r} ms, cold {cold!r} ms, plain {p_ms!r} ms, bound {least!r} "
+            f"ms ({nbytes} bytes, {flops} operations: {bound_by}), share of bound warm "
+            f"{least * 2 / sum(warm):.3f} cold {least / cold:.3f}")
+    return {"ms": sum(warm) / 2, "cold_ms": cold, "plain_ms": sum(p_ms) / 2,
+            "bound_ms": least, "bound_by": bound_by}, line
+
+
 def bound_ms(nbytes, flops):
     """(least time in ms the card could take, what bounds it)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -193,11 +279,41 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
 
 
+# Bounds on |kernel - plain|, as (label, last-axis columns, bound) from the
+# plain output: 1e-5 of the output's scale, for float32 sums taken in another
+# order (and with fused multiply-adds).
+def bound_k1(ref):
+    return [("v", slice(None), 1e-5 * max(1.0, float(ref.abs().max())))]
+
+
+def bound_k2(ref):
+    return [("all", slice(None), 1e-5 * float(ref.abs().max()))]
+
+
+def k1_needed_bytes(mass):
+    """The bytes K1's function needs: every node's mass read and velocity (3)
+    written, and the momentum (3) of the nodes with mass only -- a node
+    without mass gets velocity 0 whatever its momentum, and the kernel reads
+    no other."""
+    return 4 * (4 * mass.numel() + 3 * int((mass > 0).sum()))
+
+
+def k2_live_bytes(mk, sort):
+    """The bytes of K2's work that the P2G uses downstream: the packed
+    columns 0:28 of every row, the block table, and the output of the blocks
+    that hold particles in their 13 value channels only (the sentinel
+    blocks' rows and the 3 pad channels are written and thrown away)."""
+    live = int((sort.counts > 0).sum())
+    return live, 4 * (sort.packed.shape[0] * 28 + live * 13 * mk.P2G_NODES
+                      + 2 * sort.starts.numel())
+
+
 def kernel_cases(torch, np, mpm, mk, config, state):
     """(name, kernel call, plain call, error bounds, bytes, operations) at
     the substep inputs of `state`, perturbed so that stress, u0 and C are
     all nonzero.  Bytes count what the function needs of every input, read
-    once, and every output written once: K2 uses packed columns 0:28, K3
+    once, and every output written once: K1 the momentum of the nodes with
+    mass only (k1_needed_bytes), K2 packed columns 0:28, K3
     columns 16:40 (taps, base, x, F) and every block's window, those of
     blocks without particles too.  Operations count the float32 multiplies
     and adds of the taken particles."""
@@ -222,15 +338,6 @@ def kernel_cases(torch, np, mpm, mk, config, state):
     p2g_args = (sort.packed, sort.starts, sort.counts, pmax)
     g2p_args = (sort.packed, vel_ext, sort.starts, sort.counts, pmax, dxi2, config.dt)
 
-    # Bounds on |kernel - plain|, as (label, last-axis columns, bound) from
-    # the plain output: 1e-5 of the output's scale, for float32 sums taken
-    # in another order (and with fused multiply-adds).
-    def bound_k1(ref):
-        return [("v", slice(None), 1e-5 * max(1.0, float(ref.abs().max())))]
-
-    def bound_k2(ref):
-        return [("all", slice(None), 1e-5 * float(ref.abs().max()))]
-
     def bound_k3(ref):
         # C = dxi2 (sum w v n - v x) is a difference of terms of size
         # dxi2 |v| |x|: its rounding scales with that, not with |C|.
@@ -244,7 +351,7 @@ def kernel_cases(torch, np, mpm, mk, config, state):
     A = sort.starts.shape[0]
     taken = n - int(sort.dropped)
     table_bytes = 2 * A * 4  # starts and counts
-    k1_bytes = 4 * (mass.numel() + 2 * mom.numel())
+    k1_bytes = k1_needed_bytes(mass)
     k2_bytes = 4 * (n * 28 + A * mk.P2G_NV * mk.P2G_NODES) + table_bytes
     k3_bytes = 4 * (n * (mk.PACKED_COLS - 16) + vel_ext.numel()
                     + A * pmax * mk.G2P_OUT) + table_bytes
@@ -292,19 +399,20 @@ def run_path(torch, mpm, path, config, state, n):
     return out, start.elapsed_time(end)
 
 
+def _device_us(avg):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(avg, attr, None)
+        if value is not None:
+            return float(value)
+    return 0.0
+
+
 def profile_paths(torch, mpm, scales, card):
     """torch.profiler over PROFILE_SUBSTEPS substeps of each kernel path:
     device time, busy share and kernel count per substep, and the three
     hand-written kernels' device time per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def self_device_us(avg):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            value = getattr(avg, attr, None)
-            if value is not None:
-                return float(value)
-        return 0.0
 
     for scale, (config, state) in scales.items():
         n = state.x.shape[0]
@@ -321,7 +429,7 @@ def profile_paths(torch, mpm, scales, card):
                 torch.cuda.synchronize()
                 traced_ms = (time.perf_counter() - t0) * 1e3
             avgs = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
-            device_ms = sum(self_device_us(a) for a in avgs) / 1e3
+            device_ms = sum(_device_us(a) for a in avgs) / 1e3
             check(device_ms > 0, "the profiler recorded no device time")
             count = sum(a.count for a in avgs)
             print(f"[profile scale={scale} n={n}] {path} kernel: wall "
@@ -333,7 +441,7 @@ def profile_paths(torch, mpm, scales, card):
                 for kernel in ("update_grid_kernel", "p2g_block_kernel", "g2p_block_kernel"):
                     if kernel in a.key:
                         print(f"[profile scale={scale} n={n}] {path}: {kernel} "
-                              f"{self_device_us(a) / 1e3 / a.count!r} ms/call "
+                              f"{_device_us(a) / 1e3 / a.count!r} ms/call "
                               f"x {a.count} [{card}]")
 
 
@@ -446,36 +554,25 @@ def mpc_main_path(torch, bench, mk, dev, card):
     return res, info
 
 
-def mpc_profile(torch, mpc, res, info, card):
-    """Phase 8: torch.profiler over PROFILE_MPC_STEPS RTI MPC steps from the
-    main path's state after a third of its steps."""
+def profile_layers(torch, run, n, layers, top_layers, tag, unit, card, named=()):
+    """torch.profiler over `run` (n units of work, after one warm-up call and
+    one timed call without the profiler): device ms, busy share and kernel
+    launches per unit, and per layer (a ``record_function`` range) the
+    device time read off the device timeline -- the kernels that start
+    inside the span of one of the range's annotations (a nested range's
+    kernels count in each enclosing one; the profiler's own per-range
+    totals count some device time twice) -- beside the range's inclusive
+    host time, and what lies outside every range of `top_layers`.  Kernels
+    whose names hold one of `named` get a line of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(avg):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            value = getattr(avg, attr, None)
-            if value is not None:
-                return float(value)
-        return 0.0
-
-    x_start = res.xs[:, MPC_STEPS // 3].contiguous()
-    us_warm = info["us0"].expand(x_start.shape[0], -1, -1)
-    lim = info["u_limit"]
-
-    def run():
-        return mpc.ilqr_mpc_rollout(
-            info["plan_step"], info["running_cost"], info["final_cost"], info["params"],
-            x_start, us_warm, PROFILE_MPC_STEPS, dt=info["h"], u_lower=-lim, u_upper=lim,
-            options=info["light_options"], sim_dynamics=info["plant_step"], x_bound=50.0,
-            plan_guard=info["plan_guard"])
 
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_MPC_STEPS
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -485,20 +582,14 @@ def mpc_profile(torch, mpc, res, info, card):
     # The ranges also appear on the device's timeline as annotations that
     # span their kernels: they are no kernels of their own.
     kernels = [a for a in avgs if a.device_type == DeviceType.CUDA
-               and not getattr(a, "is_user_annotation", False) and a.key not in MPC_LAYERS]
-    device_ms = sum(device_us(a) for a in kernels) / 1e3
+               and not getattr(a, "is_user_annotation", False) and a.key not in layers]
+    device_ms = sum(_device_us(a) for a in kernels) / 1e3
     check(device_ms > 0, "the profiler recorded no device time")
     count = sum(a.count for a in kernels)
-    n = PROFILE_MPC_STEPS
-    print(f"[profile mpc] batch={x_start.shape[0]} RTI: wall {wall_ms!r} ms/MPC step (no "
-          f"profiler), {traced_ms / n!r} traced; device kernels {device_ms / n!r} ms/MPC step, "
-          f"busy {device_ms / traced_ms!r}, {count / n!r} kernels/MPC step [{card}]")
-    # Per layer, on the device's timeline: the kernels that start inside the
-    # span of one of the range's annotations (a nested range's kernels count
-    # in each enclosing one).  The profiler's per-range totals link a range to
-    # the device events it launched, its own annotation among them, and so
-    # count some time twice.  Host time is the range's inclusive CPU time.
-    spans = {layer: [] for layer in MPC_LAYERS}
+    print(f"[profile {tag}] wall {wall_ms!r} ms/{unit} (no profiler), {traced_ms / n!r} "
+          f"traced; device kernels {device_ms / n!r} ms/{unit}, busy "
+          f"{device_ms / traced_ms!r}, {count / n!r} kernels/{unit} [{card}]")
+    spans = {layer: [] for layer in layers}
     timeline = []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -516,24 +607,286 @@ def mpc_profile(torch, mpc, res, info, card):
 
     timeline_ms = sum(d for _, d in timeline) / 1e3
     outside = sum(d for t, d in timeline
-                  if not any(inside(layer, t) for layer in MPC_TOP_LAYERS)) / 1e3
-    for layer in MPC_LAYERS:
+                  if not any(inside(layer, t) for layer in top_layers)) / 1e3
+    for layer in layers:
         check(spans[layer], f"no device annotation of {layer} in the trace")
         dev = sum(d for t, d in timeline if inside(layer, t)) / 1e3
         rows = [a for a in avgs if a.key == layer and a.device_type == DeviceType.CPU]
         host = sum(float(a.cpu_time_total) for a in rows) / 1e3
         calls = sum(a.count for a in rows)
-        print(f"[profile mpc] {layer}: device kernels {dev / n!r} ms/MPC step, host "
-              f"{host / n!r} ms/MPC step (both inclusive), {calls / n!r} calls/MPC step [{card}]")
-    # What no layer range holds: the cost sums, the plan guard and the lane
-    # guards between the ranges.
-    print(f"[profile mpc] outside {'/'.join(MPC_TOP_LAYERS)}: device kernels "
-          f"{outside / n!r} ms/MPC step; all kernels on the timeline {timeline_ms / n!r} "
-          f"ms/MPC step [{card}]")
-    top = sorted(kernels, key=device_us, reverse=True)[:12]
+        print(f"[profile {tag}] {layer}: device kernels {dev / n!r} ms/{unit}, host "
+              f"{host / n!r} ms/{unit} (both inclusive), {calls / n!r} calls/{unit} [{card}]")
+    print(f"[profile {tag}] outside {'/'.join(top_layers)}: device kernels "
+          f"{outside / n!r} ms/{unit}; all kernels on the timeline {timeline_ms / n!r} "
+          f"ms/{unit} [{card}]")
+    for a in kernels:
+        if any(name in a.key for name in named):
+            print(f"[profile {tag}] {a.key}: {_device_us(a) / 1e3 / n!r} ms/{unit}, "
+                  f"{a.count / n!r} launches/{unit} [{card}]")
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
     for a in top:
-        print(f"[profile mpc] kernel {a.key[:90]}: {device_us(a) / 1e3 / n!r} ms/MPC step, "
-              f"{a.count / n!r} launches/MPC step [{card}]")
+        print(f"[profile {tag}] kernel {a.key[:90]}: {_device_us(a) / 1e3 / n!r} ms/{unit}, "
+              f"{a.count / n!r} launches/{unit} [{card}]")
+
+
+def mpc_profile(torch, mpc, res, info, card):
+    """Phase 8: torch.profiler over PROFILE_MPC_STEPS RTI MPC steps from the
+    main path's state after a third of its steps.  The layers' ranges: what
+    no top-level range holds is the cost sums, the plan guard and the lane
+    guards between them."""
+    x_start = res.xs[:, MPC_STEPS // 3].contiguous()
+    us_warm = info["us0"].expand(x_start.shape[0], -1, -1)
+    lim = info["u_limit"]
+
+    def run():
+        return mpc.ilqr_mpc_rollout(
+            info["plan_step"], info["running_cost"], info["final_cost"], info["params"],
+            x_start, us_warm, PROFILE_MPC_STEPS, dt=info["h"], u_lower=-lim, u_upper=lim,
+            options=info["light_options"], sim_dynamics=info["plant_step"], x_bound=50.0,
+            plan_guard=info["plan_guard"])
+
+    profile_layers(torch, run, PROFILE_MPC_STEPS, MPC_LAYERS, MPC_TOP_LAYERS,
+                   f"mpc batch={x_start.shape[0]} RTI", "MPC step", card)
+
+
+def coupled_inputs(torch, np, paddle_blob, lanes, dev):
+    """Phase 9's inputs: config 5's world over `lanes` lanes (blob and
+    paddle moved by offsets 0.04 (U - 0.5) from a generator seeded SEED, as
+    the bench moves its scenarios; the paddle's face in the blob's first
+    layer, moving at 0.2 m/s), after COUPLED_PREP_STEPS coupled steps under
+    COUPLED_PREP_FORCE, with v and F perturbed from SEED so that stress, u0
+    and C are all live.  Returns (config, particle state)."""
+    w = paddle_blob.build(device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    dx0 = 0.04 * (torch.rand(lanes, generator=gen, dtype=torch.float64) - 0.5)
+    s = paddle_blob.shifted(paddle_blob.lanes(w.state0, lanes), dx0.float().to(dev))
+    rigid = s.rigid.clone()
+    rigid[:, 0] += 0.04
+    rigid[:, 1] = 0.2
+    s = s._replace(rigid=rigid)
+    force = torch.full((lanes, 1), COUPLED_PREP_FORCE, device=dev)
+    for _ in range(COUPLED_PREP_STEPS):
+        s = w.world.step(w.params, s, force)
+    p = s.particles
+    rng = np.random.default_rng(SEED)
+    shape = tuple(p.x.shape)
+    v = p.v + torch.as_tensor(0.1 * rng.standard_normal(shape), dtype=torch.float32, device=dev)
+    F = p.F + torch.as_tensor(0.01 * rng.standard_normal(shape + (3,)), dtype=torch.float32,
+                              device=dev)
+    return w.world.mpm_config, p.replace(v=v, F=F)
+
+
+def lane_kernel_cases(mpm, mk, config, state):
+    """(name, kernel call, plain call, error bounds, bytes, operations) of
+    K1 and K2 over the lanes of `state`: K1 on the lanes' grids from the
+    plain scatter P2G, K2 on the lanes' block sort.  Bytes and operations
+    are counted as in kernel_cases."""
+    pmax = config.block_capacity
+    grid = mpm.particle_to_grid_scatter(config, state)
+    mass = grid.mass.contiguous()
+    mom = grid.momentum.movedim(-1, -4).contiguous()
+    grid_args = (mass, mom, config.dt, config.gravity, config.wall_width)
+    sort = mpm.sort_particles(config, state)
+    p2g_args = (sort.packed, sort.starts, sort.counts, pmax)
+    rows = sort.packed.shape[0]
+    blocks = sort.starts.numel()
+    taken = rows - int(sort.dropped.sum())
+    k1_bytes = k1_needed_bytes(mass)
+    k2_bytes = 4 * (rows * 28 + blocks * mk.P2G_NV * mk.P2G_NODES) + 2 * blocks * 4
+    return [
+        ("update_grid", lambda: mk.update_grid_cuda(*grid_args),
+         lambda: mk.update_grid_reference(*grid_args), bound_k1, k1_bytes,
+         mass.numel() * 3 * 2),
+        ("p2g_block", lambda: mk.p2g_block_cuda(*p2g_args),
+         lambda: mk.p2g_block_reference(*p2g_args), bound_k2, k2_bytes,
+         taken * 27 * (2 + 2 * 13)),
+    ], grid_args, sort
+
+
+def lane_checks(torch, mpm, mk, tree_map, config, state, grid_args, sort, vel, out, card):
+    """Lane l of the batched K1 and K2 calls against the unbatched calls on
+    lane l: K1 on lane l's grid (bit for bit), K2 on lane l's own block sort
+    of lane l's particles (its table equal to the batched one's lane l, its
+    output within the K2 bound)."""
+    lanes, n = state.x.shape[:2]
+    for lane in sorted({0, lanes // 2, lanes - 1}):
+        vel_l = mk.update_grid_cuda(grid_args[0][lane], grid_args[1][lane], *grid_args[2:])
+        one = mpm.sort_particles(config, tree_map(lambda t: t[lane], state))
+        out_l = mk.p2g_block_cuda(one.packed, one.starts, one.counts, config.block_capacity)
+        torch.cuda.synchronize()
+        check(torch.equal(vel_l, vel[lane]), f"update_grid: lane {lane} differs from its own call")
+        check(torch.equal(one.active, sort.active[lane])
+              and torch.equal(one.counts, sort.counts[lane])
+              and torch.equal(one.starts + lane * n, sort.starts[lane]),
+              f"sort_particles: lane {lane}'s block table differs from its own sort")
+        err = float((out_l - out[lane]).abs().max())
+        bound = bound_k2(out[lane])[0][2]
+        print(f"[lanes L={lanes}] lane {lane}: update_grid equal to its own call; block "
+              f"table equal; p2g_block max|batched - own| = {err:.3e} (<= {bound:.3e}) "
+              f"{'ok' if err <= bound else 'FAIL'} [{card}]")
+        check(err <= bound, f"p2g_block: lane {lane} differs from its own call")
+
+
+def coupled_parity_values(torch, paddle_blob, cpl, mppi, tree_map, device, dtype):
+    """Phase 10's quantities of config 5's world on `device` in `dtype`:
+    COUPLED_PARITY_LANES lanes with the paddle's face in the blob (0.345 m +
+    4 mm a lane, 0.2 m/s, torques 2, -1, 0.5, 4 N) through one coupled step
+    (its 10 substeps' impulses taken again by simulate_coupled), and one
+    mppi_step of 2 scenarios x 2 samples (the first two lanes) over the
+    bench's horizon of 10 coupled steps, its perturbations drawn on the CPU
+    from SEED in float64."""
+    w = paddle_blob.build(device=device, dtype=dtype)
+    L = COUPLED_PARITY_LANES
+    kw = dict(dtype=dtype, device=device)
+    s = paddle_blob.lanes(w.state0, L)
+    q = 0.345 + 0.004 * torch.arange(L, **kw)
+    s = s._replace(rigid=torch.stack([q, torch.full_like(q, 0.2)], dim=-1))
+    tau = torch.tensor([[2.0], [-1.0], [0.5], [4.0]], **kw)
+    world = w.world
+    geoms = world.rigid_geoms(w.params, s.rigid[:, :1], s.rigid[:, 1:])
+    _, impulses = cpl.simulate_coupled(world.mpm_config, world.contact_params, s.particles,
+                                       geoms, world.substeps_per_step)
+    nxt = world.step(w.params, s, tau)
+    B = COUPLED_PARITY_SCENARIOS
+    opts = mppi.MppiOptions(num_samples=L // B, temperature=0.05, noise_sigma=8.0,
+                            u_lower=(-25.0,), u_upper=(25.0,))
+    noise = torch.randn((B, L // B, COUPLED_HORIZON, 1), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(SEED)).to(**kw)
+    u_nom = torch.full((B, COUPLED_HORIZON, 1), 5.0, **kw)
+    res = mppi.mppi_step(lambda st, u: world.step(w.params, st, u), w.running_cost,
+                         w.final_cost, tree_map(lambda t: t[:B], s), u_nom, noise, opts)
+    out = {"x": nxt.particles.x, "v": nxt.particles.v, "F": nxt.particles.F,
+           "C": nxt.particles.C, "rigid": nxt.rigid, "impulses": impulses,
+           "u_traj": res.u_traj, "cost": res.cost}
+    return {k: v.detach().double().cpu() for k, v in out.items()}
+
+
+# How each phase 10 quantity is scaled: max(1, max|ref|) or max|ref|.
+COUPLED_PARITY_UNIT_SCALE = {"x": True, "F": True, "rigid": True}
+
+
+def coupled_parity_errors(ref, got):
+    """{name: (max |got - ref| / scale, scale)}; non-finite gives inf."""
+    out = {}
+    for name, r in ref.items():
+        g = got[name]
+        check(g.shape == r.shape, f"{name}: shape {tuple(g.shape)} vs {tuple(r.shape)}")
+        scale = float(r.abs().max())
+        if COUPLED_PARITY_UNIT_SCALE.get(name):
+            scale = max(1.0, scale)
+        err = float((g - r).abs().max()) if bool(g.isfinite().all()) else float("inf")
+        out[name] = (err / scale, scale)
+    return out
+
+
+def coupled_parity(torch, modules, dev, card):
+    """Phase 10: card float32 against CPU float64 (see
+    coupled_parity_values), within COUPLED_PARITY."""
+    ref = coupled_parity_values(torch, *modules, torch.device("cpu"), torch.float64)
+    got = coupled_parity_values(torch, *modules, dev, torch.float32)
+    for name, (rel, scale) in coupled_parity_errors(ref, got).items():
+        bound = COUPLED_PARITY[name]
+        ok = rel <= bound
+        print(f"[coupled parity lanes={COUPLED_PARITY_LANES}] {name} {tuple(ref[name].shape)}: "
+              f"max|f32 card - f64 cpu| / scale = {rel:.3e} (<= {bound:.1e}; scale "
+              f"{scale:.3e}; float32 on a CPU: {COUPLED_PARITY_CPU[name]:.1e}) "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        check(ok, f"coupled parity: {name} off by {rel:.3e} of its scale (bound {bound:.1e})")
+
+
+def coupled_world_phase(torch, mk, bench_world, dev, card):
+    """Phase 11: the coupled world bench, K = 64 rollouts of 10 coupled
+    steps in one call, with the kernels and with xla_only=True; returns the
+    kernel run's launches."""
+    runs = {}
+    for xla_only in (False, True):
+        mk.reset_launch_counts()
+        res = bench_world.run(COUPLED_WORLD_LANES, COUPLED_HORIZON, device=dev,
+                              xla_only=xla_only)
+        launches = dict(mk.LAUNCHES)
+        label = "plain" if xla_only else "kernel"
+        # A warm-up rollout and the timed one, one K1 and one K2 launch a
+        # substep over all lanes.
+        n = 0 if xla_only else 2 * COUPLED_HORIZON * res["substeps_per_step"]
+        want = {"update_grid": n, "p2g_block": n, "g2p_block": 0}
+        print(f"[coupled world {label}] K={res['lanes']} horizon={res['horizon']} x "
+              f"{res['substeps_per_step']} substeps, {res['particles']} particles a lane: "
+              f"{res['substeps_per_s']!r} substeps/s (wall {res['wall_s']!r} s, CUDA events "
+              f"{res['device_s']!r} s), dropped max {res['dropped_max']}, finite "
+              f"{res['finite']}, peak memory {res['peak_memory_bytes']} B, launches "
+              f"{json.dumps(launches)} [{card}]")
+        check(launches == want, f"coupled world {label}: launches {launches}, expected {want}")
+        check(res["finite"], f"coupled world {label}: non-finite state")
+        check(res["dropped_max"] == 0, f"coupled world {label}: dropped {res['dropped_max']}")
+        runs[label] = res
+        if not xla_only:
+            kernel_launches = launches
+    k, p = runs["kernel"]["final_state"], runs["plain"]["final_state"]
+    dx = float((k.particles.x - p.particles.x).abs().max())
+    dv = float((k.particles.v - p.particles.v).abs().max())
+    dr = float((k.rigid - p.rigid).abs().max())
+    ok = max(dx, dv, dr) <= COUPLED_MAX_DIFF_PATHS
+    print(f"[coupled world] kernel vs plain after the rollout: max|dx| {dx:.3e}, max|dv| "
+          f"{dv:.3e}, max|d rigid| {dr:.3e} (<= {COUPLED_MAX_DIFF_PATHS:.0e}) "
+          f"{'ok' if ok else 'FAIL'}; kernel/plain substeps/s "
+          f"{runs['kernel']['substeps_per_s'] / runs['plain']['substeps_per_s']!r}")
+    check(ok, "coupled world: kernel and plain paths disagree")
+    return kernel_launches
+
+
+def config5_phase(torch, mk, bench_mpc, dev, card):
+    """Phase 12: config 5 at full width, CONFIG5_SCENARIOS x CONFIG5_SAMPLES
+    lanes in one call, CONFIG5_STEPS MPC steps after a warm-up, with its
+    gates; returns (launches, the bench's result)."""
+    mk.reset_launch_counts()
+    res = bench_mpc.run(CONFIG5_SCENARIOS, CONFIG5_SAMPLES, CONFIG5_STEPS, seed=SEED,
+                        device=dev)
+    launches = dict(mk.LAUNCHES)
+    # Each MPC step: one MPPI solve over the horizon, then the applied step.
+    per_step = (res["horizon"] + 1) * res["substeps_per_step"]
+    n = (CONFIG5_STEPS + CONFIG5_WARMUP_STEPS) * per_step
+    want = {"update_grid": n, "p2g_block": n, "g2p_block": 0}
+    print(f"[config5] {res['scenarios']} scenarios x {res['samples']} samples = "
+          f"{res['scenarios'] * res['samples']} lanes, horizon {res['horizon']} x "
+          f"{res['substeps_per_step']} substeps, {res['steps']} MPC steps, float32 TF32 off: "
+          f"wall {res['wall_s']!r} s, {res['solves_per_s']!r} solves/s, "
+          f"{res['wall_s'] / res['steps'] * 1e3!r} ms per MPC step [{card}]")
+    print(f"[config5] goal reached {res['reached']}/{res['scenarios']} (err < 6 cm), median "
+          f"final error {res['median_err']!r} m, non-finite scenarios {res['nonfinite']}, "
+          f"dropped max {res['dropped_max']}, peak memory {res['peak_memory_bytes']} B "
+          f"({res['peak_memory_bytes'] / 2**30:.3f} GiB), launches {json.dumps(launches)} "
+          f"[{card}]")
+    check(launches == want, f"config 5: launches {launches}, expected {want}")
+    check(res["nonfinite"] == 0, f"config 5: {res['nonfinite']} non-finite scenarios")
+    check(res["dropped_max"] == 0, f"config 5: dropped {res['dropped_max']}")
+    check(res["reached"] >= CONFIG5_MIN_REACHED,
+          f"config 5: {res['reached']}/{res['scenarios']} reached the goal")
+    check(res["median_err"] <= CONFIG5_MAX_MEDIAN_ERR,
+          f"config 5: median final error {res['median_err']:.4f} m")
+    return launches, res
+
+
+def coupled_profile(torch, bench_mpc, mppi, tree_map, res, dev, card):
+    """With --profile: torch.profiler over one coupled step of config 5's
+    256 lanes (per coupled substep: its tenth, SAP included) and over one
+    MPC step, both from the main path's state after a third of its steps;
+    the ranges coupling.substep, coupling.contact and coupled.sap_step and
+    the K1 and K2 kernels."""
+    w, _, opts, dynamics, _ = bench_mpc.make_problem(CONFIG5_SCENARIOS, CONFIG5_SAMPLES,
+                                                     SEED, dev)
+    state = tree_map(lambda t: t[:, CONFIG5_STEPS // 3].contiguous(), res["states"])
+    lanes = tree_map(lambda t: t.repeat_interleave(CONFIG5_SAMPLES, dim=0), state)
+    u = torch.full((CONFIG5_SCENARIOS * CONFIG5_SAMPLES, 1), 10.0, device=dev)
+    named = ("update_grid_kernel", "p2g_block_kernel")
+    profile_layers(torch, lambda: w.world.step(w.params, lanes, u),
+                   w.world.substeps_per_step, COUPLED_LAYERS, COUPLED_TOP_LAYERS,
+                   f"config5 coupled step L={u.shape[0]}", "coupled substep", card, named)
+    u_nom = torch.zeros((CONFIG5_SCENARIOS, bench_mpc.HORIZON, 1), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    profile_layers(torch, lambda: mppi.mppi_mpc_rollout(
+        dynamics, w.running_cost, w.final_cost, state, u_nom, 1, opts, generator=gen),
+        1, COUPLED_LAYERS, COUPLED_TOP_LAYERS,
+        f"config5 MPC step B={CONFIG5_SCENARIOS} M={CONFIG5_SAMPLES}", "MPC step", card, named)
 
 
 def main(argv) -> int:
@@ -545,11 +898,14 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     from drake_tpu_torch import bench
-    from drake_tpu_torch.control import mpc
+    from drake_tpu_torch.benchmarks import bench_coupled_mpc, bench_coupled_world, paddle_blob
+    from drake_tpu_torch.control import mpc, mppi
+    from drake_tpu_torch.mpm import coupling
     from drake_tpu_torch.mpm import solver as mpm
     from drake_tpu_torch.ops import _build
     from drake_tpu_torch.ops import mpm_kernels as mk
     from drake_tpu_torch.trajopt import ilqr
+    from drake_tpu_torch.utils.struct import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -660,20 +1016,8 @@ def main(argv) -> int:
         n = state.x.shape[0]
         for name, kernel, plain, _, nbytes, flops in kernel_cases(
                 torch, np, mpm, mk, config, state):
-            # kernel, plain, plain, kernel: both orders within one run.
-            warm = [time_ms(torch, kernel, KERNEL_REPS)]
-            p_ms = [time_ms(torch, plain, KERNEL_REPS), time_ms(torch, plain, KERNEL_REPS)]
-            warm.append(time_ms(torch, kernel, KERNEL_REPS))
-            cold = time_cold_ms(torch, kernel, KERNEL_REPS, flush)
-            least, bound_by = bound_ms(nbytes, flops)
-            timed[name] = {
-                "ms": sum(warm) / 2, "cold_ms": cold, "plain_ms": sum(p_ms) / 2,
-                "bound_ms": least, "bound_by": bound_by,
-            }
-            print(f"[time scale={scale} n={n}] {name}: kernel warm {warm!r} ms, "
-                  f"cold {cold!r} ms, plain {p_ms!r} ms, bound {least!r} ms "
-                  f"({nbytes} bytes, {flops} operations: {bound_by}), share of "
-                  f"bound warm {least * 2 / sum(warm):.3f} cold {least / cold:.3f} [{card}]")
+            timed[name], line = time_kernel(torch, kernel, plain, flush, nbytes, flops)
+            print(f"[time scale={scale} n={n}] {name}: {line} [{card}]")
     del flush
 
     # ---- 5. profile (on request) --------------------------------------------
@@ -685,13 +1029,67 @@ def main(argv) -> int:
     res, info = mpc_main_path(torch, bench, mk, dev, card)
     if "--profile" in argv:
         mpc_profile(torch, mpc, res, info, card)
+    del res, info
 
-    # Times are those of the larger size (the last timed); no single PyTorch
-    # call computes any of the three functions, so library_ms is null.
+    # ---- 9. K1 and K2 over lanes, at the coupled world's shapes -------------
+    coupled_timed = {"update_grid": {}, "p2g_block": {}}
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    for lanes in COUPLED_KERNEL_LANES:
+        config, state = coupled_inputs(torch, np, paddle_blob, lanes, dev)
+        cases, grid_args, sort = lane_kernel_cases(mpm, mk, config, state)
+        tag = (f"lanes L={lanes} grid {config.grid_size} A={config.max_active_blocks} "
+               f"pmax={config.block_capacity} rows={sort.packed.shape[0]} "
+               f"dropped={int(sort.dropped.sum())}")
+        check(int(sort.dropped.sum()) == 0, f"{tag}: the coupled scene dropped particles")
+        outs = {}
+        for name, kernel, plain, bounds, nbytes, flops in cases:
+            err, ok, detail = kernel_parity(torch, name, kernel, plain, bounds)
+            errs[name] = max(errs[name], err)
+            print(f"[parity {tag}] {name}: max|kernel - plain| = {err:.3e} ({detail}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} disagrees with its plain version at {tag}")
+            coupled_timed[name][lanes], line = time_kernel(torch, kernel, plain, flush,
+                                                           nbytes, flops)
+            coupled_timed[name][lanes]["max_abs_err"] = err
+            print(f"[time {tag}] {name}: {line} [{card}]")
+            if name == "p2g_block":
+                live, live_bytes = k2_live_bytes(mk, sort)
+                live_ms, _ = bound_ms(live_bytes, flops)
+                print(f"[time {tag}] p2g_block on its {live} live blocks of "
+                      f"{sort.counts.numel()} and 13 live channels of {mk.P2G_NV}: bound "
+                      f"{live_ms!r} ms ({live_bytes} bytes), share of it warm "
+                      f"{live_ms / coupled_timed[name][lanes]['ms']:.3f} [{card}]")
+            outs[name] = kernel()
+        lane_checks(torch, mpm, mk, tree_map, config, state, grid_args, sort,
+                    outs["update_grid"], outs["p2g_block"], card)
+        del cases, grid_args, sort, outs, state
+    del flush
+    torch.cuda.empty_cache()
+
+    # ---- 10-12. the coupled MPM + rigid world and its MPPI (config 5) ------
+    coupled_parity(torch, (paddle_blob, coupling, mppi, tree_map), dev, card)
+    by_path = {"mpm substep (phase 3)": launches}
+    by_path["coupled world K=64 (phase 11)"] = coupled_world_phase(
+        torch, mk, bench_coupled_world, dev, card)
+    by_path["config 5, 32 x 8 (phase 12)"], res5 = config5_phase(
+        torch, mk, bench_coupled_mpc, dev, card)
+    if "--profile" in argv:
+        coupled_profile(torch, bench_coupled_mpc, mppi, tree_map, res5, dev, card)
+    for name in ("update_grid", "p2g_block"):
+        for path, counts in list(by_path.items())[1:]:
+            check(counts[name] > 0, f"{name} was never launched by {path}")
+
+    # Times at the top level are those of the larger MPM size (the last
+    # timed), under "coupled" those of phase 9 by lane count; no single
+    # PyTorch call computes any of the three functions, so library_ms is
+    # null.
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": launches[name], "launches_per_substep": per_substep[name],
-         "max_abs_err": errs[name], **timed[name], "library_ms": None}
+         "launches": sum(counts[name] for counts in by_path.values()),
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+         "launches_per_substep": per_substep[name],
+         "max_abs_err": errs[name], **timed[name], "library_ms": None,
+         **({"coupled": coupled_timed[name]} if name in coupled_timed else {})}
         for name, (route, source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,147 @@
+"""Coupled rigid (SAP) + MPM world stepping.
+
+The PyTorch counterpart of ``drake_tpu/contact/coupled_plant.py``: one
+coupled step runs the MPM substeps against the current rigid poses,
+accumulating the particles' contact impulses, then the rigid SAP step with
+the accumulated impulses over h applied as external spatial forces (the
+one-way-lagged "async" two-way coupling of arXiv:2503.05046;
+FinalizeExternalContactForces, deformable_driver.h:210-218).
+
+Every tensor of a ``CoupledState`` may lead with the same lane axes: the
+rigid state ``(..., nq + nv)`` and the particles ``(..., n, ...)``.  The port
+carries the explicit penalty branch of ``step``; the implicit grid-contact
+branches (tiled and dense) and the cloth branch raise ``NotImplementedError``
+(ROADMAP.md, Queue 1 items 2-6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from drake_tpu_torch.contact import plant as cplant
+from drake_tpu_torch.contact import sap
+from drake_tpu_torch.geometry.scene import CollisionScene
+from drake_tpu_torch.mpm import coupling as cpl
+from drake_tpu_torch.mpm import solver as mpm
+from drake_tpu_torch.multibody import kinematics as kin
+from drake_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
+from drake_tpu_torch.utils.device import constant
+
+
+class CoupledState(NamedTuple):
+    """The world state: rigid x = [q; v] plus the MPM particles."""
+
+    rigid: torch.Tensor
+    particles: mpm.MpmState
+
+
+@dataclasses.dataclass(frozen=True)
+class CoupledWorld:
+    """Static description: rigid model and scene, MPM config, and which rigid
+    collision geometries the particles touch (fields as the reference's)."""
+
+    model: MultibodyModel
+    scene: CollisionScene
+    mpm_config: mpm.MpmConfig
+    contact_params: cpl.MpmContactParams
+    coupled_geometries: Tuple[int, ...]  # indices into scene.geometries
+    substeps_per_step: int
+    time_step: float
+    sap_params: sap.SapParameters = sap.SapParameters()
+    # "penalty", "implicit", or "auto": implicit where the penalty's own
+    # stability bound binds (dt sqrt(stiffness) >= 1, half the bound
+    # dt < ~2/sqrt(k)), penalty otherwise -- the reference's rule.
+    contact_model: str = "auto"
+    # A codimensional cloth in place of the particles: the cloth branch,
+    # not ported yet.  The implicit branches' options (grid_contact_params,
+    # contact_query_frequency, tiled) come with them.
+    cloth_config: Optional[object] = None
+
+    def resolved_contact_model(self) -> str:
+        """The branch ``step`` takes: "auto" resolved as the reference does."""
+        if self.contact_model != "auto":
+            return self.contact_model
+        stiff = self.mpm_config.dt * math.sqrt(self.contact_params.stiffness) >= 1.0
+        return "implicit" if stiff else "penalty"
+
+    def rigid_geoms(self, params: MultibodyParams, q, v):
+        """Current-pose ``RigidGeom``s of the coupled geometries, with the
+        lanes of q (..., nq) and v (..., nv)."""
+        joints = kin.joint_transforms(self.model, params, q)
+        R_WB, p_WB = kin.forward_kinematics(self.model, params, q, joints)
+        V_W = kin.world_velocities(self.model, params, q, v, joints)
+        batch = q.shape[:-1]
+        out = []
+        for gi in self.coupled_geometries:
+            g = self.scene.geometries[gi]
+            R_BG = constant(tuple(map(tuple, np.asarray(g.R_BG, dtype=float).tolist())), q)
+            p_BG = constant(tuple(np.asarray(g.p_BG, dtype=float).tolist()), q)
+            if g.body < 0:
+                R_WG, p_WG = R_BG.expand(batch + (3, 3)), p_BG.expand(batch + (3,))
+                p_WBo = q.new_zeros(batch + (3,))
+                V = q.new_zeros(batch + (6,))
+            else:
+                R = R_WB[..., g.body, :, :]
+                R_WG = R @ R_BG
+                p_WG = p_WB[..., g.body, :] + (R @ p_BG.unsqueeze(-1)).squeeze(-1)
+                p_WBo = p_WB[..., g.body, :]
+                V = V_W[..., g.body, :]
+            out.append(cpl.RigidGeom(
+                shape=g.shape, body_index=g.body, R_WG=R_WG, p_WG=p_WG, p_WB=p_WBo, V_WB=V,
+            ))
+        return out
+
+    def step(self, params: MultibodyParams, state: CoupledState, tau_applied) -> CoupledState:
+        """One coupled step of ``time_step`` seconds: the MPM substeps
+        against the current rigid poses, then the rigid SAP step with the
+        accumulated impulses / h as external spatial forces."""
+        model = self.model
+        nq = model.num_positions
+        q, v = state.rigid[..., :nq], state.rigid[..., nq:]
+        h = self.time_step
+        if self.cloth_config is not None:
+            raise NotImplementedError(
+                "the cloth branch of CoupledWorld.step is not ported yet "
+                "(ROADMAP.md, Queue 1 item 6)")
+        contact_model = self.resolved_contact_model()
+        if contact_model == "implicit":
+            raise NotImplementedError(
+                "the implicit grid-contact branches of CoupledWorld.step (tiled and "
+                "dense) are not ported yet (ROADMAP.md, Queue 1 items 2, 4 and 5); "
+                f"dt * sqrt(stiffness) = {self.mpm_config.dt * math.sqrt(self.contact_params.stiffness):.3g}")
+        if contact_model != "penalty":
+            raise ValueError(f"unknown contact_model {self.contact_model!r}")
+
+        geoms = self.rigid_geoms(params, q, v)
+        particles, impulses = cpl.simulate_coupled(
+            self.mpm_config, self.contact_params, state.particles, geoms,
+            self.substeps_per_step,
+        )
+        with record_function("coupled.sap_step"):
+            # Impulse accumulators -> external spatial forces on the bodies.
+            fext = q.new_zeros(q.shape[:-1] + (model.num_bodies, 6))
+            for k, gi in enumerate(self.coupled_geometries):
+                body = self.scene.geometries[gi].body
+                if body >= 0:
+                    fext[..., body, :] += impulses[..., k, :] / h
+            data, _ = sap.assemble(
+                model, params, self.scene, q, v, tau_applied, h, self.sap_params,
+                external_forces_W=fext,
+            )
+            sol = sap.solve_sap(data, data.v_star, self.sap_params)
+            q_next = cplant.advance_positions(model, params, q, sol.v, h)
+        return CoupledState(rigid=torch.cat([q_next, sol.v], dim=-1), particles=particles)
+
+    def simulate(self, params, state: CoupledState, num_steps: int, tau=None):
+        """`num_steps` coupled steps (zero actuation by default)."""
+        if tau is None:
+            tau = state.rigid.new_zeros(state.rigid.shape[:-1] + (self.model.num_velocities,))
+        for _ in range(num_steps):
+            state = self.step(params, state, tau)
+        return state

@@ -8,9 +8,9 @@ assembles the SAP problem at (q, v), solves it, and advances the positions
 symplectically, q_{t+1} = q + h N(q) v_{t+1}, with quaternions advanced by the
 exponential map.  ``x`` and ``u`` carry the lanes of a batch in their leading
 dimensions.  ``step_with_forces`` and the options of
-``make_discrete_system`` (actuated joints other than every revolute one,
-joint limits, couplers, ball/distance/weld constraints, PD joints) are not
-ported yet (ROADMAP.md).
+``make_discrete_system`` (actuated joints other than every revolute and
+prismatic one, joint limits, couplers, ball/distance/weld constraints, PD
+joints) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,7 +20,13 @@ import torch
 from drake_tpu_torch.contact import sap
 from drake_tpu_torch.geometry.scene import CollisionScene
 from drake_tpu_torch.math import rotations as rot
-from drake_tpu_torch.multibody.model import FLOATING, REVOLUTE, MultibodyModel, MultibodyParams
+from drake_tpu_torch.multibody.model import (
+    FLOATING,
+    PRISMATIC,
+    REVOLUTE,
+    MultibodyModel,
+    MultibodyParams,
+)
 from drake_tpu_torch.systems.base import DiscreteSystem
 
 
@@ -37,7 +43,7 @@ def advance_positions(model: MultibodyModel, params, q, v, h):
             v_B = v[..., vo + 3 : vo + 6]
             xyz_next = q[..., qo + 4 : qo + 7] + h * (R_JB @ v_B.unsqueeze(-1)).squeeze(-1)
             parts += [quat_next, xyz_next]
-        elif jt == REVOLUTE:
+        elif jt in (REVOLUTE, PRISMATIC):
             parts.append(q[..., qo : qo + 1] + h * v[..., vo : vo + 1])
     return torch.cat(parts, dim=-1)
 
@@ -55,8 +61,8 @@ def make_discrete_system(
     weld_constraints=None,
     pd_joints=None,
 ) -> DiscreteSystem:
-    """Discrete plant with SAP contact; x = [q; v], u = the torques of the
-    revolute joints."""
+    """Discrete plant with SAP contact; x = [q; v], u = the efforts of the
+    revolute and prismatic joints (the reference's default actuation)."""
     for name, arg in (("joint_limits", joint_limits), ("couplers", couplers),
                       ("ball_constraints", ball_constraints),
                       ("distance_constraints", distance_constraints),
@@ -67,7 +73,7 @@ def make_discrete_system(
     nq = model.num_positions
     nv = model.num_velocities
     h = time_step
-    act = [i for i, jt in enumerate(model.joint_types) if jt == REVOLUTE]
+    act = [i for i, jt in enumerate(model.joint_types) if jt in (REVOLUTE, PRISMATIC)]
     act_v_offsets = [model.v_offsets[i] for i in act]
     nu = len(act)
     # tau = B u with B the (nv, nu) selection of the actuated dofs, made once

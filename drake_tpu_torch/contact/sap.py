@@ -372,6 +372,8 @@ class _SapSolve(torch.autograd.Function):
     @staticmethod
     def forward(A, v_star, J, R, vhat, mu, v_guess, sap_params):
         sol = _solve_sap_core(SapData(A, v_star, J, R, vhat, mu), v_guess, sap_params)
+        if sol.v is v_guess:  # no lane took a step (a problem without contacts)
+            sol = sol._replace(v=v_guess.clone())
         return tuple(sol)
 
     @staticmethod

@@ -17,11 +17,21 @@ The substep makes no host sync: capacities are static (``MpmConfig``), the
 active-block compaction has a fixed size, and ``dropped`` stays a device
 tensor.  ``MpmConfig.xla_only`` is the explicit switch to the plain versions
 on the card; it is never set automatically.
+
+Lanes: the transfers (``particle_to_grid`` and both its paths,
+``update_grid``, ``grid_to_particle``) also take L independent states at
+once -- ``MpmState`` fields ``(L, n, ...)``, ``GridState`` fields
+``(L, nx, ny, nz, ...)`` and ``dropped`` ``(L,)`` -- as the JAX package
+takes them under ``vmap``.  Every lane has its own grid: the lane enters the
+flat node index and the block sort key, never the particle positions, so one
+lane's stencil cannot reach another lane's nodes.  ``mpm_substep_blocked``
+takes one state only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -91,6 +101,7 @@ class MpmConfig:
 class MpmState:
     """Particle state (SoA, like GpuMpmState's particle buffers)."""
 
+    # Each field may lead with a lane axis L: x (L, n, 3), dropped (L,).
     x: torch.Tensor  # (n, 3) positions
     v: torch.Tensor  # (n, 3) velocities
     F: torch.Tensor  # (n, 3, 3) deformation gradient
@@ -98,13 +109,13 @@ class MpmState:
     volume: torch.Tensor  # (n,) initial volume
     mass: torch.Tensor  # (n,)
     # Particles dropped by the blocked path's static capacities in the LAST
-    # substep (scalar int32 tensor on the state's device); nonzero means the
-    # capacities are undersized.  Left out, it is a zero on the device of `x`.
+    # substep (int32 tensor on the state's device, one per lane); nonzero
+    # means the capacities are undersized.  Left out, it is zero.
     dropped: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.dropped is None:
-            zero = torch.zeros((), dtype=torch.int32, device=self.x.device)
+            zero = torch.zeros(self.x.shape[:-2], dtype=torch.int32, device=self.x.device)
             object.__setattr__(self, "dropped", zero)
 
 
@@ -231,11 +242,20 @@ def fixed_corotated_stress(F, mu, lam):
 
 
 class GridState(NamedTuple):
-    mass: torch.Tensor  # (nx, ny, nz)
-    momentum: torch.Tensor  # (nx, ny, nz, 3)
-    # Particles dropped by static block capacities this transfer (scalar
-    # int32 tensor; zero on the scatter path).
+    mass: torch.Tensor  # (nx, ny, nz), or (L, nx, ny, nz) over lanes
+    momentum: torch.Tensor  # (nx, ny, nz, 3), or (L, nx, ny, nz, 3)
+    # Particles dropped by static block capacities this transfer (int32
+    # tensor, () or (L,); zero on the scatter path).
     dropped: Union[torch.Tensor, int] = 0
+
+
+def _lane_offsets(lanes: Tuple[int, ...], stride: int, device, trailing: int):
+    """Lane l's offset l * stride into a flat index over all lanes, shaped
+    `lanes` plus `trailing` singleton axes; None for a single state."""
+    if not lanes:
+        return None
+    off = torch.arange(math.prod(lanes), device=device) * stride
+    return off.reshape(lanes + (1,) * trailing)
 
 
 def particle_to_grid(config: MpmConfig, state: MpmState) -> GridState:
@@ -252,22 +272,24 @@ def _p2g_affine(config: MpmConfig, state: MpmState):
     """Fused APIC+stress affine matrix B = -dt 4/dx^2 V0 P F^T + m C."""
     mu, lam = config.lame
     P = fixed_corotated_stress(state.F, mu, lam)
-    stress_B = (-config.dt * 4.0 / config.dx**2) * state.volume[:, None, None] * (
+    stress_B = (-config.dt * 4.0 / config.dx**2) * state.volume[..., None, None] * (
         P @ state.F.transpose(-1, -2)
     )
-    return stress_B + state.mass[:, None, None] * state.C
+    return stress_B + state.mass[..., None, None] * state.C
 
 
 class BlockSort(NamedTuple):
-    """The block sort shared by the blocked P2G and G2P."""
+    """The block sort shared by the blocked P2G and G2P.  Over L lanes the
+    rows of all lanes form one sorted table (lane slowest), and the block
+    fields lead with the lane axis."""
 
-    packed: torch.Tensor  # (n, 40) rows sorted by (block, cell in block)
-    perm: torch.Tensor  # (n,) sorted row -> particle
-    bid: torch.Tensor  # (n,) block id of each particle (unsorted order)
-    active: torch.Tensor  # (A,) ascending block ids, sentinel nblocks last
-    starts: torch.Tensor  # (A,) int32 first sorted row of each block
-    counts: torch.Tensor  # (A,) int32 rows of each block taken (<= PMAX)
-    dropped: torch.Tensor  # () int32 particles left out by the capacities
+    packed: torch.Tensor  # (L n, 40) rows sorted by (lane, block, cell in block)
+    perm: torch.Tensor  # (L n,) sorted row -> flat particle index
+    bid: torch.Tensor  # ([L,] n) block id of each particle (unsorted order)
+    active: torch.Tensor  # ([L,] A) ascending block ids, sentinel nblocks last
+    starts: torch.Tensor  # ([L,] A) int32 first sorted row of each block
+    counts: torch.Tensor  # ([L,] A) int32 rows of each block taken (<= PMAX)
+    dropped: torch.Tensor  # ([L]) int32 particles left out by the capacities
 
 
 def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
@@ -278,11 +300,18 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
 
     On the blocked paths the base cell is clipped to n-3 per axis (so the
     6^3 window stays in the grid) while the weights come from the unclipped
-    base."""
+    base.
+
+    Over L lanes the key leads with the lane, and each lane keeps its own
+    first A distinct blocks: block ids and ``dropped`` are per lane, and
+    ``starts`` index the one sorted table of all lanes' rows."""
     dx = config.dx
     dtype = state.x.dtype
     dev = state.x.device
-    n = state.x.shape[0]
+    lanes = state.x.shape[:-2]
+    L = math.prod(lanes)
+    n = state.x.shape[-2]
+    N = L * n
     nx, ny, nz = config.grid_size
     if nx % 4 or ny % 4 or nz % 4:
         raise ValueError(f"grid dims must be multiples of 4, got {config.grid_size}")
@@ -291,26 +320,31 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
     A = config.max_active_blocks
     PMAX = config.block_capacity
 
-    affine = _p2g_affine(config, state)
-    base, w = _bspline_weights(state.x, dx)
+    affine = _p2g_affine(config, state).reshape(N, 3, 3)
+    x = state.x.reshape(N, 3)
+    mass = state.mass.reshape(N)
+    base, w = _bspline_weights(x, dx)
     hi = device_constant((nx - 3, ny - 3, nz - 3), torch.int64, dev)
     base = torch.minimum(base.clamp_min(0), hi)
     # u = m v + B(x_node - x_p) split into u0 = m v - B x_p and + B x_node.
-    u0 = state.mass[:, None] * state.v - torch.einsum("nij,nj->ni", affine, state.x)
+    u0 = mass[:, None] * state.v.reshape(N, 3) - torch.einsum("nij,nj->ni", affine, x)
     bxyz = base // 4
     lb_local = base - 4 * bxyz  # 0..3
-    # Sort key: block id * 64 + cell in block (lx * 16 + ly * 4 + lz).
+    # Sort key: (lane * (nblocks + 1) + block id) * 64 + cell in block
+    # (lx * 16 + ly * 4 + lz).  The lane stride leaves each lane's sentinel
+    # block id nblocks free of particles.
     radix = device_constant(
         (64 * nby * nbz, 64 * nbz, 64, 16, 4, 1), torch.int64, dev
     )
     key = (torch.cat([bxyz, lb_local], dim=1) * radix).sum(dim=1)
     bid = key >> 6
+    key = key + (torch.arange(N, device=dev) // n) * (64 * (nblocks + 1))
 
     packed = torch.cat(
         [
-            state.mass[:, None], u0, affine.reshape(n, 9),
-            torch.zeros((n, 3), dtype=dtype, device=dev),
-            w.reshape(n, 9), lb_local.to(dtype), state.x, state.F.reshape(n, 9),
+            mass[:, None], u0, affine.reshape(N, 9),
+            torch.zeros((N, 3), dtype=dtype, device=dev),
+            w.reshape(N, 9), lb_local.to(dtype), x, state.F.reshape(N, 9),
         ],
         dim=1,
     )
@@ -320,44 +354,51 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
     # threads the same window nodes; a stable sort makes the order
     # reproducible.
     key_s, perm = torch.sort(key, stable=True)
-    bid_s = key_s >> 6
+    gid_s = key_s >> 6  # lane * (nblocks + 1) + block id
     packed_s = packed[perm]
 
-    # Fixed-size compaction (jnp.unique(size=A, fill_value=nblocks)): the
-    # first A distinct block ids in ascending order, then the sentinel.
-    first = torch.ones(n, dtype=torch.bool, device=dev)
-    first[1:] = bid_s[1:] != bid_s[:-1]
+    # Fixed-size compaction (jnp.unique(size=A, fill_value=nblocks)) per
+    # lane: the first A distinct block ids of the lane in ascending order,
+    # then the sentinel.
+    first = torch.ones(N, dtype=torch.bool, device=dev)
+    first[1:] = gid_s[1:] != gid_s[:-1]
+    # Rank within the lane: lane l holds the sorted rows [l n, (l+1) n).
     rank = torch.cumsum(first, 0) - 1
-    slot = torch.where(first & (rank < A), rank, A)
-    active = torch.full((A + 1,), nblocks, dtype=bid_s.dtype, device=dev)
-    active.scatter_(0, slot, bid_s)
-    active = active[:A]
-    starts = torch.searchsorted(bid_s, active, right=False)
-    ends = torch.searchsorted(bid_s, active, right=True)
+    lane_s = gid_s // (nblocks + 1)
+    rank = rank - rank[lane_s * n]
+    slot = torch.where(first & (rank < A), lane_s * A + rank, L * A)
+    active = torch.full((L * A + 1,), nblocks, dtype=gid_s.dtype, device=dev)
+    active.scatter_(0, slot, gid_s - lane_s * (nblocks + 1))
+    active = active[: L * A]
+    active_g = active + (torch.arange(L * A, device=dev) // A) * (nblocks + 1)
+    starts = torch.searchsorted(gid_s, active_g, right=False)
+    ends = torch.searchsorted(gid_s, active_g, right=True)
     counts = torch.clamp(ends - starts, max=PMAX)
     # Sentinel entries cover no particle.
     counts = torch.where(active < nblocks, counts, 0)
-    dropped = (n - counts.sum()).to(torch.int32)
+    dropped = (n - counts.reshape(L, A).sum(dim=1)).to(torch.int32)
     return BlockSort(
-        packed=packed_s, perm=perm, bid=bid, active=active,
-        starts=starts.to(torch.int32), counts=counts.to(torch.int32),
-        dropped=dropped,
+        packed=packed_s, perm=perm, bid=bid.reshape(lanes + (n,)),
+        active=active.reshape(lanes + (A,)),
+        starts=starts.to(torch.int32).reshape(lanes + (A,)),
+        counts=counts.to(torch.int32).reshape(lanes + (A,)),
+        dropped=dropped.reshape(lanes),
     )
 
 
 def window_node_pos(config: MpmConfig, active, dtype):
-    """(A, 216, 3) world positions of each active block's 6^3 window nodes,
-    node l = (i*6+j)*6+k at grid index 4*block + (i, j, k)."""
+    """(..., A, 216, 3) world positions of each active block's 6^3 window
+    nodes, node l = (i*6+j)*6+k at grid index 4*block + (i, j, k)."""
     _, ny, nz = config.grid_size
     nby, nbz = ny // 4, nz // 4
     ablock = torch.stack(
-        [active // (nbz * nby), (active // nbz) % nby, active % nbz], dim=1
+        [active // (nbz * nby), (active // nbz) % nby, active % nbz], dim=-1
     )
     l_range = torch.arange(6, device=active.device)
     ll = torch.stack(
         torch.meshgrid(l_range, l_range, l_range, indexing="ij"), dim=-1
     ).reshape(P2G_NODES, 3)
-    return (4 * ablock[:, None, :] + ll[None, :, :]).to(dtype) * config.dx
+    return (4 * ablock[..., None, :] + ll).to(dtype) * config.dx
 
 
 def _combine(T, block_axis, local_axis, nb):
@@ -371,26 +412,36 @@ def _combine(T, block_axis, local_axis, nb):
 
 
 def _grid_from_blocks(config: MpmConfig, sort: BlockSort, out, node_pos) -> GridState:
-    """Turn the K2 output (A, 16, 216) into the dense grid: add B x_node to
-    the momentum, place each active block's window, combine the halos."""
+    """Turn the K2 output ([L,] A, 16, 216) into the dense grid of each
+    lane: add B x_node to the momentum, place each active block's window in
+    its lane's grid, combine the halos."""
     nx, ny, nz = config.grid_size
     nbx, nby, nbz = nx // 4, ny // 4, nz // 4
     nblocks = nbx * nby * nbz
-    A = sort.active.shape[0]
+    lanes = sort.active.shape[:-1]
+    L = math.prod(lanes)
+    LA = L * sort.active.shape[-1]
+    out = out.reshape(LA, mpm_kernels.P2G_NV, P2G_NODES)
     M_blk = out[:, 0, :]
-    U_blk = out[:, 1:4, :].transpose(1, 2)  # (A, 216, 3)
-    C_blk = out[:, 4:13, :].transpose(1, 2).reshape(A, P2G_NODES, 3, 3)
-    mom_blk = U_blk + torch.einsum("alij,alj->ali", C_blk, node_pos)
-    # Active ids are unique; sentinel entries (all zero) go to the extra row.
-    T = torch.zeros((nblocks + 1, P2G_NODES, 4), dtype=out.dtype, device=out.device)
-    T.index_add_(
-        0, sort.active.clamp(max=nblocks),
-        torch.cat([M_blk[..., None], mom_blk], dim=-1),
+    U_blk = out[:, 1:4, :].transpose(1, 2)  # (LA, 216, 3)
+    C_blk = out[:, 4:13, :].transpose(1, 2).reshape(LA, P2G_NODES, 3, 3)
+    mom_blk = U_blk + torch.einsum(
+        "alij,alj->ali", C_blk, node_pos.reshape(LA, P2G_NODES, 3)
     )
-    T = T[:-1].reshape(nbx, nby, nbz, 6, 6, 6, 4)
-    Tx = _combine(T, 0, 3, nbx)  # (nx, nby, nbz, 6, 6, 4)
-    Ty = _combine(Tx, 1, 3, nby)  # (nx, ny, nbz, 6, 4)
-    Tz = _combine(Ty, 2, 3, nbz)  # (nx, ny, nz, 4)
+    # Active ids are unique within a lane; sentinel entries (all zero) go to
+    # the extra row.
+    dest = sort.active.clamp(max=nblocks)
+    off = _lane_offsets(lanes, nblocks, dest.device, 1)
+    if off is not None:
+        dest = torch.where(dest < nblocks, dest + off, L * nblocks)
+    T = torch.zeros((L * nblocks + 1, P2G_NODES, 4), dtype=out.dtype, device=out.device)
+    T.index_add_(
+        0, dest.reshape(LA), torch.cat([M_blk[..., None], mom_blk], dim=-1),
+    )
+    T = T[:-1].reshape(L, nbx, nby, nbz, 6, 6, 6, 4)
+    Tx = _combine(T, 1, 4, nbx)  # (L, nx, nby, nbz, 6, 6, 4)
+    Ty = _combine(Tx, 2, 4, nby)  # (L, nx, ny, nbz, 6, 4)
+    Tz = _combine(Ty, 3, 4, nbz).reshape(lanes + (nx, ny, nz, 4))
     return GridState(mass=Tz[..., 0], momentum=Tz[..., 1:], dropped=sort.dropped)
 
 
@@ -411,54 +462,60 @@ def particle_to_grid_blocked(config: MpmConfig, state: MpmState) -> GridState:
 
 def particle_to_grid_scatter(config: MpmConfig, state: MpmState) -> GridState:
     """Direct scatter-add P2G (the oracle): ``index_add_`` of the 27-tap
-    stencil into a flat grid with one extra bucket for out-of-domain taps."""
+    stencil into a flat grid (each lane's after the one before) with one
+    extra bucket for out-of-domain taps."""
     dx = config.dx
     dtype = state.x.dtype
     dev = state.x.device
     nx, ny, nz = config.grid_size
+    lanes = state.x.shape[:-2]
+    nodes = nx * ny * nz
+    size = math.prod(lanes) * nodes + 1
 
     affine = _p2g_affine(config, state)
     base, w = _bspline_weights(state.x, dx)
     offsets = device_constant(_STENCIL, torch.int64, dev)  # (27, 3)
-    idx = base[:, None, :] + offsets[None, :, :]  # (n, 27, 3)
+    idx = base[..., None, :] + offsets  # (..., n, 27, 3)
     weight = (
-        w[:, 0, offsets[:, 0]] * w[:, 1, offsets[:, 1]] * w[:, 2, offsets[:, 2]]
-    )  # (n, 27)
-    dpos = (idx.to(dtype) - state.x[:, None, :] / dx) * dx  # (n, 27, 3)
+        w[..., 0, offsets[:, 0]] * w[..., 1, offsets[:, 1]] * w[..., 2, offsets[:, 2]]
+    )  # (..., n, 27)
+    dpos = (idx.to(dtype) - state.x[..., None, :] / dx) * dx  # (..., n, 27, 3)
     mom = weight[..., None] * (
-        (state.mass[:, None] * state.v)[:, None, :]
-        + torch.einsum("nij,ntj->nti", affine, dpos)
-    )  # (n, 27, 3)
-    m_scatter = weight * state.mass[:, None]  # (n, 27)
+        (state.mass[..., None] * state.v)[..., None, :]
+        + torch.einsum("...ij,...tj->...ti", affine, dpos)
+    )  # (..., n, 27, 3)
+    m_scatter = weight * state.mass[..., None]  # (..., n, 27)
 
-    flat = (idx[..., 0] * ny + idx[..., 1]) * nz + idx[..., 2]  # (n, 27)
+    flat = (idx[..., 0] * ny + idx[..., 1]) * nz + idx[..., 2]  # (..., n, 27)
     in_bounds = (
         (idx[..., 0] >= 0) & (idx[..., 0] < nx)
         & (idx[..., 1] >= 0) & (idx[..., 1] < ny)
         & (idx[..., 2] >= 0) & (idx[..., 2] < nz)
     )
-    flat = torch.where(in_bounds, flat, nx * ny * nz).reshape(-1)
-    size = nx * ny * nz + 1
+    off = _lane_offsets(lanes, nodes, dev, 2)
+    if off is not None:
+        flat = flat + off
+    flat = torch.where(in_bounds, flat, size - 1).reshape(-1)
     grid_m = torch.zeros((size,), dtype=dtype, device=dev)
     grid_m.index_add_(0, flat, m_scatter.reshape(-1))
     grid_p = torch.zeros((size, 3), dtype=dtype, device=dev)
     grid_p.index_add_(0, flat, mom.reshape(-1, 3))
     return GridState(
-        mass=grid_m[:-1].reshape(nx, ny, nz),
-        momentum=grid_p[:-1].reshape(nx, ny, nz, 3),
-        dropped=torch.zeros((), dtype=torch.int32, device=dev),
+        mass=grid_m[:-1].reshape(lanes + (nx, ny, nz)),
+        momentum=grid_p[:-1].reshape(lanes + (nx, ny, nz, 3)),
+        dropped=torch.zeros(lanes, dtype=torch.int32, device=dev),
     )
 
 
 def update_grid(config: MpmConfig, grid: GridState) -> torch.Tensor:
     """Momentum -> velocity, gravity (active nodes), domain-wall BCs, through
-    K1 on CUDA.  Returns grid velocities (nx, ny, nz, 3)."""
-    mom = grid.momentum.movedim(-1, 0).contiguous()  # (3, nx, ny, nz)
+    K1 on CUDA.  Returns grid velocities ([L,] nx, ny, nz, 3)."""
+    mom = grid.momentum.movedim(-1, -4).contiguous()  # ([L,] 3, nx, ny, nz)
     vel = mpm_kernels.update_grid(
         grid.mass.contiguous(), mom, config.dt, config.gravity, config.wall_width,
         plain=config.xla_only,
     )
-    return vel.movedim(0, -1)
+    return vel.movedim(-4, -1)
 
 
 def grid_to_particle(
@@ -466,13 +523,15 @@ def grid_to_particle(
 ) -> MpmState:
     """G2P gather: new particle velocity, APIC C, F update, advection.
 
-    C = 4/dx^2 sum_i w_i v_i dpos_i^T, F <- (I + dt C) F, x <- x + dt v."""
+    C = 4/dx^2 sum_i w_i v_i dpos_i^T, F <- (I + dt C) F, x <- x + dt v.
+    Over lanes, each lane gathers from its own grid ``grid_vel[l]``."""
     dx, dt = config.dx, config.dt
     dtype = state.x.dtype
     dev = state.x.device
     nx, ny, nz = config.grid_size
     base, w = _bspline_weights(state.x, dx)
     flat_vel = grid_vel.reshape(-1, 3)
+    off = _lane_offsets(state.x.shape[:-2], nx * ny * nz, dev, 1)
 
     v_new = torch.zeros_like(state.v)
     C_new = torch.zeros_like(state.C)
@@ -484,12 +543,13 @@ def grid_to_particle(
         # clamped indices.
         valid = ((idx >= 0) & (idx <= hi)).all(dim=-1)
         idx_c = torch.minimum(idx.clamp_min(0), hi)
-        weight = w[:, 0, i] * w[:, 1, j] * w[:, 2, k] * valid.to(dtype)
+        weight = w[..., 0, i] * w[..., 1, j] * w[..., 2, k] * valid.to(dtype)
         dpos = (idx.to(dtype) - state.x / dx) * dx
-        vi = flat_vel[(idx_c[:, 0] * ny + idx_c[:, 1]) * nz + idx_c[:, 2]]
-        v_new = v_new + weight[:, None] * vi
-        C_new = C_new + (4.0 / dx**2) * weight[:, None, None] * (
-            vi[:, :, None] * dpos[:, None, :]
+        flat = (idx_c[..., 0] * ny + idx_c[..., 1]) * nz + idx_c[..., 2]
+        vi = flat_vel[flat if off is None else flat + off]
+        v_new = v_new + weight[..., None] * vi
+        C_new = C_new + (4.0 / dx**2) * weight[..., None, None] * (
+            vi[..., :, None] * dpos[..., None, :]
         )
 
     F_new = (torch.eye(3, dtype=dtype, device=dev) + dt * C_new) @ state.F
@@ -548,7 +608,11 @@ def mpm_substep_blocked(config: MpmConfig, state: MpmState) -> MpmState:
     """Fused blocked substep: ONE block sort shared by P2G (K2) and G2P (K3),
     the grid update (K1) between them, windows by strided slicing, and an
     unsort back to particle order.  Particles dropped by the capacities keep
-    their old state."""
+    their old state.  One state only (no lane axis)."""
+    if state.x.dim() != 2:
+        raise NotImplementedError(
+            "mpm_substep_blocked takes one state; over lanes use mpm_substep"
+        )
     dx, dt = config.dx, config.dt
     dtype = state.x.dtype
     n = state.x.shape[0]

@@ -20,6 +20,7 @@ import torch
 from drake_tpu_torch.math import rotations as rot
 from drake_tpu_torch.multibody.model import (
     FLOATING,
+    PRISMATIC,
     REVOLUTE,
     WELD,
     MultibodyModel,
@@ -50,6 +51,10 @@ def joint_transform(model: MultibodyModel, params: MultibodyParams, i: int, q) -
         R = R_PJ @ rot.axis_angle_to_rotation(axis, q[..., qo])
         p = p_PJ.expand(batch + (3,))
         S = torch.cat([axis, torch.zeros_like(axis)])[:, None]
+    elif jt == PRISMATIC:
+        R = R_PJ.expand(batch + (3, 3))
+        p = p_PJ + q[..., qo, None] * (R_PJ @ axis)
+        S = torch.cat([torch.zeros_like(axis), axis])[:, None]
     elif jt == WELD:
         R = R_PJ.expand(batch + (3, 3))
         p = p_PJ.expand(batch + (3,))

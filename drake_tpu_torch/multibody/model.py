@@ -6,9 +6,9 @@ kinematics and dynamics unroll in Python; the numeric parameters live in a
 ``MultibodyParams`` of tensors shared by every lane of a batch.
 
 Joint model (Featherstone): X_{P,B}(q) = X_PJ . X_J(q), with the motion
-subspace S expressed in the child body frame.  This slice of the port carries
-the revolute, weld and quaternion-floating joints; the others raise
-``NotImplementedError`` (ROADMAP.md, slice 2 and slice 5).
+subspace S expressed in the child body frame.  The port carries the
+revolute, prismatic, weld and quaternion-floating joints; the others raise
+``NotImplementedError`` (ROADMAP.md, slice 5).
 """
 
 from __future__ import annotations
@@ -24,18 +24,19 @@ from drake_tpu_torch.utils.device import resolve_device
 from drake_tpu_torch.utils.struct import tensor_dataclass
 
 REVOLUTE = "revolute"
+PRISMATIC = "prismatic"
 WELD = "weld"
 FLOATING = "floating"  # q = [qw,qx,qy,qz, x,y,z], v = [w_B; v_B]
 
-_NQ = {REVOLUTE: 1, WELD: 0, FLOATING: 7}
-_NV = {REVOLUTE: 1, WELD: 0, FLOATING: 6}
+_NQ = {REVOLUTE: 1, PRISMATIC: 1, WELD: 0, FLOATING: 7}
+_NV = {REVOLUTE: 1, PRISMATIC: 1, WELD: 0, FLOATING: 6}
 
 
 def _check_joint_type(joint_type: str):
     if joint_type not in _NQ:
         raise NotImplementedError(
             f"joint type {joint_type!r} is not ported yet: drake_tpu_torch carries "
-            "revolute, weld and floating joints (ROADMAP.md, slice 5)"
+            "revolute, prismatic, weld and floating joints (ROADMAP.md, slice 5)"
         )
 
 

@@ -70,11 +70,15 @@ __device__ __forceinline__ int block_count(int start, int count, int pmax,
 }
 
 // K1 -- grid update.  Replaces _update_grid_kernel (drake_tpu/ops/
-// mpm_kernels.py:59), which ran one (ny, nz) x-slab per grid step in VMEM.
+// mpm_kernels.py:59), which ran one (ny, nz) x-slab per grid step in VMEM
+// (B * nx slabs under vmap, its wall test on the slab index modulo nx).
 // Bound on this card: device memory, ~28 B moved per node (mass + 3 momentum
 // in, 3 velocity out) and a handful of flops.  Design: one thread per node,
 // consecutive threads on consecutive z so every load and store is coalesced;
-// the wall mask is recomputed from the index instead of read.
+// the wall mask is recomputed from the index instead of read.  Lanes
+// (independent grids stored one after the other, mass (L, nx, ny, nz),
+// momentum and velocity (L, 3, nx, ny, nz)) are the grid's y dimension, and
+// the wall test uses the node's index within its lane.
 __global__ void update_grid_kernel(const float* __restrict__ mass,
                                    const float* __restrict__ mom,
                                    float* __restrict__ vel, int nx, int ny,
@@ -83,6 +87,10 @@ __global__ void update_grid_kernel(const float* __restrict__ mass,
   const int64_t n_nodes = static_cast<int64_t>(nx) * ny * nz;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_nodes) return;
+  const int64_t lane = blockIdx.y;
+  mass += lane * n_nodes;
+  mom += lane * 3 * n_nodes;
+  vel += lane * 3 * n_nodes;
   const int k = static_cast<int>(idx % nz);
   const int j = static_cast<int>((idx / nz) % ny);
   const int i = static_cast<int>(idx / (static_cast<int64_t>(ny) * nz));
@@ -126,6 +134,9 @@ __global__ void update_grid_kernel(const float* __restrict__ mass,
 // no particle only writes zeros.  The halo combine into the dense grid stays
 // in PyTorch.  The walk relies on the rows' order: a block whose rows are not
 // sorted by cell gets NaN in its 13 live channels instead of wrong sums.
+// Lanes need nothing of the kernel: a batch of L problems is one table of
+// all lanes' sorted rows and L * A (start, count) entries into it, one CTA
+// each; row offsets into the table are taken in 64 bits.
 __device__ __forceinline__ void p2g_stage_chunk(float4* dst,
                                                 const float* __restrict__ packed,
                                                 int64_t first_row, int ld,
@@ -467,14 +478,14 @@ g2p_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
 
 extern "C" {
 
-int mpm_update_grid(const float* mass, const float* mom, float* vel, int nx,
-                    int ny, int nz, float dt, float gx, float gy, float gz,
-                    int wall, void* stream) {
+int mpm_update_grid(const float* mass, const float* mom, float* vel, int lanes,
+                    int nx, int ny, int nz, float dt, float gx, float gy,
+                    float gz, int wall, void* stream) {
   const int64_t n_nodes = static_cast<int64_t>(nx) * ny * nz;
   const int threads = 256;
   const int64_t blocks = (n_nodes + threads - 1) / threads;
-  update_grid_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes));
+  update_grid_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       mass, mom, vel, nx, ny, nz, dt, gx, gy, gz, wall);
   return static_cast<int>(cudaGetLastError());
 }

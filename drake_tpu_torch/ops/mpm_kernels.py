@@ -11,6 +11,13 @@ Each public function dispatches on the device of its tensors:
 Every launch adds one to ``LAUNCHES[name]``, so a run can show that its path
 went through the kernels.
 
+Lanes: K1 and K2 also take L independent problems in one launch.  K1 takes
+``mass (L, nx, ny, nz)`` and ``momentum (L, 3, nx, ny, nz)``, the lane a grid
+dimension of the kernel; K2 takes ``starts`` and ``counts`` of shape
+``(L, A)`` into one packed table of all lanes' rows (``sort_particles``
+makes it), one CTA per (lane, block).  The plain versions take the same
+shapes.
+
 The packed particle row keeps the JAX package's column meaning but is 40
 wide instead of 128 (no TPU lane padding): 0:16 values [m, u0 (3), B (9),
 pad (3)], 16:25 B-spline taps, 25:28 local base, 28:31 x, 31:40 F.  Rows are
@@ -25,6 +32,7 @@ folding and the MXU weight factorisation have no counterpart here.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -96,16 +104,17 @@ def _stream(device) -> int:
 
 
 def update_grid_reference(mass, momentum, dt, gravity, wall_width):
-    """Plain version.  mass: (nx, ny, nz); momentum: (3, nx, ny, nz).
-    Returns the velocity (3, nx, ny, nz): p / m on nodes with mass (else 0),
-    plus dt * g on nodes with mass, zeroed within `wall_width` of each face."""
+    """Plain version.  mass: ([L,] nx, ny, nz); momentum: ([L,] 3, nx, ny,
+    nz).  Returns the velocity shaped as `momentum`: p / m on nodes with mass
+    (else 0), plus dt * g on nodes with mass, zeroed within `wall_width` of
+    each face of each lane's grid."""
     g = device_constant(tuple(gravity), momentum.dtype, momentum.device)
-    m = mass[None]
+    m = mass.unsqueeze(-4)
     active = m > 0
     vel = torch.where(active, momentum / m.clamp_min(1e-12), 0.0)
     vel = vel + dt * g[:, None, None, None] * active
     w = wall_width
-    _, nx, ny, nz = momentum.shape
+    nx, ny, nz = momentum.shape[-3:]
     dev = momentum.device
     ii = torch.arange(nx, device=dev)[:, None, None]
     jj = torch.arange(ny, device=dev)[None, :, None]
@@ -115,14 +124,25 @@ def update_grid_reference(mass, momentum, dt, gravity, wall_width):
         & (jj >= w) & (jj < ny - w)
         & (kk >= w) & (kk < nz - w)
     )
-    return torch.where(inside[None], vel, 0.0)
+    return torch.where(inside, vel, 0.0)
+
+
+# Lanes of one K1 launch: the lane is the kernel's second grid dimension.
+MAX_GRID_LANES = 65535
 
 
 def update_grid_cuda(mass, momentum, dt, gravity, wall_width):
-    """Launch K1 (``update_grid_kernel``) on CUDA float32 tensors."""
-    nx, ny, nz = mass.shape
+    """Launch K1 (``update_grid_kernel``) on CUDA float32 tensors, mass
+    ([L,] nx, ny, nz) and momentum ([L,] 3, nx, ny, nz)."""
+    if mass.dim() not in (3, 4):
+        raise ValueError(f"mass: expected ([L,] nx, ny, nz), got {tuple(mass.shape)}")
+    lanes = mass.shape[:-3]
+    nx, ny, nz = mass.shape[-3:]
+    L = math.prod(lanes)
+    if L > MAX_GRID_LANES:
+        raise ValueError(f"update_grid: {L} lanes, at most {MAX_GRID_LANES} a launch")
     _check("mass", mass)
-    _check("momentum", momentum, shape=(3, nx, ny, nz), device=mass.device)
+    _check("momentum", momentum, shape=lanes + (3, nx, ny, nz), device=mass.device)
     vel = torch.empty_like(momentum)
     if mass.numel() == 0:
         return vel
@@ -130,7 +150,7 @@ def update_grid_cuda(mass, momentum, dt, gravity, wall_width):
     gx, gy, gz = (float(g) for g in gravity)
     with torch.cuda.device(mass.device):
         rc = lib.mpm_update_grid(
-            mass.data_ptr(), momentum.data_ptr(), vel.data_ptr(),
+            mass.data_ptr(), momentum.data_ptr(), vel.data_ptr(), L,
             nx, ny, nz, float(dt), gx, gy, gz, int(wall_width),
             _stream(mass.device),
         )
@@ -195,30 +215,34 @@ def _window_weights(pk, valid):
 
 def p2g_block_reference(packed, starts, counts, pmax: int):
     """Plain version.  packed: (n, >=28) rows sorted by block; starts, counts:
-    (A,).  Returns (A, 16, 216): for each block, the sum over its particles of
-    the 16 value channels times each window node's B-spline weight.
+    ([L,] A) into those rows.  Returns ([L,] A, 16, 216): for each block, the
+    sum over its particles of the 16 value channels times each window node's
+    B-spline weight.
 
     ``p2g_block`` also requires the rows of a block sorted by local base; this
     version does not use that order and does not check it."""
-    pk, valid = _gather_blocks(packed, starts, counts, pmax)
+    pk, valid = _gather_blocks(packed, starts.reshape(-1), counts.reshape(-1), pmax)
     Vb = pk[..., 0:P2G_NV] * valid[..., None]
-    return torch.einsum("apv,apl->avl", Vb, _window_weights(pk, valid))
+    out = torch.einsum("apv,apl->avl", Vb, _window_weights(pk, valid))
+    return out.reshape(starts.shape + (P2G_NV, P2G_NODES))
 
 
 def p2g_block_cuda(packed, starts, counts, pmax: int):
     """Launch K2 (``p2g_block_kernel``).  packed: (n, >=28) float32; starts,
-    counts: (A,) int32.  Channels 0:13 as the plain version; the pad channels
-    13:16 are written 0 (the solver's packed rows carry zeros there).
+    counts: ([L,] A) int32, one CTA per entry.  Channels 0:13 as the plain
+    version; the pad channels 13:16 are written 0 (the solver's packed rows
+    carry zeros there).
 
     The kernel walks each cell's rows as one run, so within a block the rows
     must be sorted by the local base (columns 25:28, x slowest), as
     ``sort_particles`` sorts them.  A block whose rows break that order gets
     NaN in channels 0:13, not a wrong sum."""
-    A = starts.shape[0]
+    shape = tuple(starts.shape)
+    A = math.prod(shape)
     _check_rows(packed, 28)
-    _check("starts", starts, torch.int32, (A,), packed.device)
-    _check("counts", counts, torch.int32, (A,), packed.device)
-    out = torch.empty((A, P2G_NV, P2G_NODES), dtype=torch.float32, device=packed.device)
+    _check("starts", starts, torch.int32, shape, packed.device)
+    _check("counts", counts, torch.int32, shape, packed.device)
+    out = torch.empty(shape + (P2G_NV, P2G_NODES), dtype=torch.float32, device=packed.device)
     if A == 0:
         return out
     lib = _build.load_library()

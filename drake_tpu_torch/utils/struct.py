@@ -46,3 +46,24 @@ def static_field(**kwargs):
     metadata = dict(kwargs.pop("metadata", {}))
     metadata["static"] = True
     return dataclasses.field(metadata=metadata, **kwargs)
+
+
+def tree_map(fn, *trees):
+    """`fn` over the tensor leaves of equally shaped state trees (tuples and
+    NamedTuples, tensor dataclasses, tensors), as ``jax.tree_util.tree_map``
+    over the JAX package's pytrees.  Other leaves are taken from the first
+    tree; a ``static_field()`` is never mapped."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if dataclasses.is_dataclass(first):
+        updates = {}
+        for f in dataclasses.fields(first):
+            if f.metadata.get("static", False):
+                continue
+            updates[f.name] = tree_map(fn, *(getattr(t, f.name) for t in trees))
+        return dataclasses.replace(first, **updates)
+    if isinstance(first, tuple):
+        items = [tree_map(fn, *parts) for parts in zip(*trees)]
+        return type(first)(*items) if hasattr(first, "_fields") else tuple(items)
+    return first

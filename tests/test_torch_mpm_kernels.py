@@ -223,3 +223,51 @@ def test_kernel_wrappers_refuse_cpu_tensors(tmk):
     with pytest.raises(ValueError, match="CUDA"):
         tmk.g2p_block_cuda(z((16, 40)), z((4, 216, 12)), i, i, 8, 1.0, 1e-4)
     assert tmk.LAUNCHES == {"update_grid": 0, "p2g_block": 0, "g2p_block": 0}
+
+
+# Lanes: L problems in one call, against jax.vmap of the reference.
+LANES = 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_update_grid_lanes_match_jax_vmap(jmk, tmk, dtype):
+    import jax
+
+    rng = np.random.default_rng(6)
+    shape = (LANES, 16, 12, 20)
+    mass = rng.uniform(0.0, 2.0, shape)
+    mass[rng.uniform(size=shape) < 0.3] = 0.0
+    mass = mass.astype(dtype)
+    mom = rng.standard_normal((LANES, 3) + shape[1:]).astype(dtype)
+    args = (1e-4, (0.5, -1.0, -9.81), 2)
+    ref = jax.vmap(lambda m, p: jmk.update_grid_reference(m, p, *args))(
+        jnp.asarray(mass), jnp.asarray(mom))
+    out = tmk.update_grid(_t(mass), _t(mom), *args)
+    assert out.shape == mom.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=TOL[dtype])
+    # Each lane's walls are its own: lane by lane equals the unbatched call.
+    for lane in range(LANES):
+        np.testing.assert_array_equal(
+            out[lane].numpy(), tmk.update_grid(_t(mass[lane]), _t(mom[lane]), *args).numpy())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_p2g_block_lanes_match_jax_vmap(jmk, tmk, dtype):
+    """Starts and counts (L, A) into one table of all lanes' rows, against
+    the reference vmapped over lanes with a table each."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    n, pmax, starts, counts = _blocks()
+    packed = np.stack([_random_packed(rng, n, dtype) for _ in range(LANES)])
+    lane_counts = np.stack([np.roll(counts, lane) for lane in range(LANES)])
+    lane_starts = np.broadcast_to(starts, (LANES, 8))
+    ref = jax.vmap(lambda pk, s, c: jmk.p2g_block_matmul_reference(
+        pk[:, 0:16], pk[:, 25:28].astype(jnp.int32), pk[:, 16:25], s, c, pmax))(
+        jnp.asarray(packed), jnp.asarray(lane_starts), jnp.asarray(lane_counts))
+    table_starts = (lane_starts + n * np.arange(LANES)[:, None]).astype(np.int32)
+    out = tmk.p2g_block(_t(packed.reshape(LANES * n, 40)), _t(table_starts),
+                        _t(lane_counts.astype(np.int32)), pmax)
+    ref = np.asarray(ref)
+    assert out.shape == (LANES, 8, 16, 216)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=TOL[dtype] * np.abs(ref).max())

@@ -90,7 +90,7 @@ def _assert_state_close(got, ref):
             rtol=0, atol=XVF_TOL, err_msg=name,
         )
     np.testing.assert_allclose(got.C.numpy(), np.asarray(ref.C), rtol=0, atol=C_TOL)
-    assert int(got.dropped) == int(ref.dropped)
+    np.testing.assert_array_equal(got.dropped.numpy(), np.asarray(ref.dropped))
 
 
 @pytest.fixture(scope="module")
@@ -296,3 +296,132 @@ def test_convert_round_trip(convert, scene):
         _to_numpy(jstate), device="cpu", dtype=torch.float32
     )
     assert f32.x.dtype == torch.float32 and f32.dropped.dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# Lanes: L independent states in one call, against jax.vmap of the reference.
+# ---------------------------------------------------------------------------
+
+LANE_CAPACITIES = {"A64": 64, "A8": 8}  # A = 8 drops blocks, differently per lane
+
+
+def _jax_lane_states(jconfig):
+    """Two lanes: the scene's state, and one with other velocities and
+    deformations whose blob sits a few cells away (other blocks)."""
+    s0 = _jax_state(jconfig, seed=3)
+    s1 = _jax_state(jconfig, seed=4)
+    s1 = s1.replace(x=s1.x + jnp.asarray([0.07, -0.05, 0.03]))
+    return jax.tree_util.tree_map(lambda a, b: jnp.stack([a, b]), s0, s1)
+
+
+@pytest.fixture(scope="module")
+def lanes(convert):
+    """The two lanes in both packages, and every vmapped JAX quantity of the
+    lane tests from one jitted program."""
+    from test_torch_multibody import run_jitted
+
+    jconfig = _jax_config()
+    jstates = _jax_lane_states(jconfig)
+    configs = {k: dataclasses.replace(jconfig, max_active_blocks=a)
+               for k, a in LANE_CAPACITIES.items()}
+
+    def one(s):
+        grid = J.particle_to_grid_scatter(jconfig, s)
+        vel = J.update_grid(jconfig, grid)
+        out = {"scatter": grid, "vel": vel, "g2p": J.grid_to_particle(jconfig, s, vel),
+               "substep": J.mpm_substep(jconfig, s)}
+        for k, cfg in configs.items():
+            out[f"blocked_{k}"] = J.particle_to_grid_blocked(cfg, s)
+        return out
+
+    ref = run_jitted(jax.vmap(one), jstates)
+    tconfigs = {k: convert.config_from_reference(dataclasses.asdict(c))
+                for k, c in configs.items()}
+    tstates = convert.state_from_numpy(_to_numpy(jstates), device="cpu")
+    return {"ref": ref, "tconfig": tconfigs["A64"], "tconfigs": tconfigs,
+            "tstates": tstates, "jstates": jstates}
+
+
+def _assert_grid_close(got, ref):
+    np.testing.assert_allclose(got.mass.numpy(), np.asarray(ref.mass), rtol=0, atol=XVF_TOL)
+    np.testing.assert_allclose(
+        got.momentum.numpy(), np.asarray(ref.momentum), rtol=0, atol=XVF_TOL
+    )
+    np.testing.assert_array_equal(got.dropped.numpy(), np.asarray(ref.dropped))
+
+
+@pytest.mark.parametrize("piece", ["scatter", "blocked_A64", "blocked_A8", "update_grid",
+                                   "grid_to_particle", "mpm_substep"])
+def test_lanes_match_jax_vmap(T, lanes, piece):
+    import torch
+
+    ref, cfg, s = lanes["ref"], lanes["tconfig"], lanes["tstates"]
+    if piece == "scatter":
+        _assert_grid_close(T.particle_to_grid_scatter(cfg, s), ref["scatter"])
+    elif piece.startswith("blocked"):
+        k = piece.split("_")[1]
+        got = T.particle_to_grid_blocked(lanes["tconfigs"][k], s)
+        _assert_grid_close(got, ref[piece])
+        if k == "A8":  # the lanes drop different counts
+            drops = np.asarray(ref[piece].dropped)
+            assert drops[0] != drops[1] and min(drops) > 0
+    elif piece == "update_grid":
+        grid = T.GridState(mass=torch.tensor(np.asarray(ref["scatter"].mass)),
+                           momentum=torch.tensor(np.asarray(ref["scatter"].momentum)))
+        np.testing.assert_allclose(T.update_grid(cfg, grid).numpy(), np.asarray(ref["vel"]),
+                                   rtol=0, atol=XVF_TOL)
+    elif piece == "grid_to_particle":
+        _assert_state_close(
+            T.grid_to_particle(cfg, s, torch.tensor(np.asarray(ref["vel"]))), ref["g2p"])
+    else:
+        got = T.mpm_substep(cfg, s)
+        _assert_state_close(got, ref["substep"])
+        assert got.dropped.shape == (2,)
+
+
+@pytest.mark.parametrize("piece", ["scatter", "blocked_A8", "grid_to_particle"])
+def test_lane_of_a_batched_call_equals_the_unbatched_call(T, lanes, piece):
+    """Lane l of a call over lanes is the call on lane l's state alone:
+    no lane reaches another's nodes or blocks."""
+    import torch
+
+    from drake_tpu_torch.utils.struct import tree_map
+
+    s = lanes["tstates"]
+    cfg = lanes["tconfigs"]["A8"]
+    vel = torch.tensor(np.asarray(lanes["ref"]["vel"]))
+    fn = {
+        "scatter": lambda st, l: T.particle_to_grid_scatter(cfg, st),
+        "blocked_A8": lambda st, l: T.particle_to_grid_blocked(cfg, st),
+        "grid_to_particle": lambda st, l: T.grid_to_particle(cfg, st, vel if l is None else vel[l]),
+    }[piece]
+    def leaves(out):  # a GridState or an MpmState
+        if dataclasses.is_dataclass(out):
+            return [getattr(out, f.name) for f in dataclasses.fields(out)]
+        return list(out)
+
+    both = fn(s, None)
+    for lane in range(2):
+        one = fn(tree_map(lambda t: t[lane], s), lane)
+        for got, want in zip(leaves(one), leaves(tree_map(lambda t: t[lane], both))):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_sort_particles_over_lanes_keeps_each_lanes_block_table(T, lanes):
+    """Over lanes the block table of lane l is that lane's own table, its
+    starts moved by the l n rows of the lanes before it; drops per lane."""
+    from drake_tpu_torch.utils.struct import tree_map
+
+    cfg, s = lanes["tconfigs"]["A8"], lanes["tstates"]
+    n = s.x.shape[1]
+    both = T.sort_particles(cfg, s)
+    assert both.active.shape == (2, 8) and both.dropped.shape == (2,)
+    for lane in range(2):
+        one = T.sort_particles(cfg, tree_map(lambda t: t[lane], s))
+        np.testing.assert_array_equal(both.active[lane].numpy(), one.active.numpy())
+        np.testing.assert_array_equal(both.counts[lane].numpy(), one.counts.numpy())
+        np.testing.assert_array_equal(both.starts[lane].numpy(), one.starts.numpy() + lane * n)
+        assert int(both.dropped[lane]) == int(one.dropped) > 0
+        rows = slice(lane * n, (lane + 1) * n)
+        np.testing.assert_array_equal(both.packed[rows].numpy(), one.packed.numpy())
+        np.testing.assert_array_equal(both.perm[rows].numpy(), one.perm.numpy() + lane * n)

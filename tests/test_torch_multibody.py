@@ -285,7 +285,7 @@ def test_unported_joint_types_raise():
 
     b = ModelBuilder()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.add_body("slider", parent=None, joint_type="prismatic", mass=1.0)
+        b.add_body("ball", parent=None, joint_type="ball", mass=1.0)
 
 
 def test_entry_points_default_to_the_card():

@@ -67,9 +67,16 @@ PORT_MODULES = (
     "drake_tpu_torch.systems.base",
     "drake_tpu_torch.contact.sap",
     "drake_tpu_torch.contact.plant",
+    "drake_tpu_torch.contact.coupled_plant",
+    "drake_tpu_torch.mpm.coupling",
     "drake_tpu_torch.trajopt.ilqr",
     "drake_tpu_torch.control.mpc",
+    "drake_tpu_torch.control.mppi",
     "drake_tpu_torch.bench",
+    "drake_tpu_torch.benchmarks",
+    "drake_tpu_torch.benchmarks.paddle_blob",
+    "drake_tpu_torch.benchmarks.bench_coupled_world",
+    "drake_tpu_torch.benchmarks.bench_coupled_mpc",
     "drake_tpu_torch.utils.device",
     "drake_tpu_torch.utils.linalg",
     "drake_tpu_torch.utils.struct",
@@ -101,7 +108,8 @@ def test_collecting_port_tests_loads_no_torch():
     imports = (
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_mpm_kernels, test_torch_mpm_solver, test_torch_package, "
-        "test_torch_multibody, test_torch_contact, test_torch_mpc"
+        "test_torch_multibody, test_torch_contact, test_torch_mpc, test_torch_coupled, "
+        "test_torch_mppi"
     )
     loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
     assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
