@@ -10,24 +10,31 @@ NVIDIA GPU:
 Phases (each prints its lines; any failure exits 1):
 
 1. build the hand-written kernels from drake_tpu_torch/ops/csrc with nvcc;
-2. hold each kernel (K1 grid update, K2 blocked P2G, K3 blocked G2P) against
-   its plain PyTorch version on the card, on substep inputs of the bench
-   scene (v and F perturbed from a fixed seed so that every channel is live)
+2. hold each kernel (K1 grid update on a dense grid, K1 from K2's block
+   windows, K2 blocked P2G, K3 blocked G2P) against its plain PyTorch
+   version on the card, on substep inputs of the bench scene (v and F perturbed from a fixed seed so that every channel is live)
    at both sizes, and at the small size with the capacities cut: blocks that
    overflow ``block_capacity`` (counts clamped to a pmax that is no multiple
    of a kernel's chunk) and blocks beyond ``max_active_blocks``; and hold K2
    to its contract on the rows' order: a block whose rows are not sorted by
    cell comes out as NaN, every other block as before;
-3. drive the MPM path -- ``simulate`` (K2 + K1) and ``mpm_substep_blocked``
-   (K2 + K1 + K3), 200 substeps each, and the same two with
-   ``xla_only=True`` (the plain versions) -- on the elastic-block scene of
-   benchmarks/bench_mpm_substeps.py at 17,576 and 132,651 particles; check
-   dropped == 0, finite state, free fall (mean v_z = -g t), and kernel vs
-   plain agreement in x and v, and count the kernel launches of that run;
+3. drive the MPM path -- ``simulate`` (K2 + K1 from block windows),
+   ``mpm_substep_blocked`` (K2 + K1 from block windows + K3) and the
+   transfer functions composed by hand, ``particle_to_grid`` ->
+   ``update_grid`` -> ``grid_to_particle`` (K2 + the dense K1, the dense
+   grid that grid contact and cloth will use), 200 substeps each, and the
+   same three with ``xla_only=True`` (the plain versions) -- on the
+   elastic-block scene of benchmarks/bench_mpm_substeps.py at 17,576 and
+   132,651 particles; check dropped == 0, finite state, free fall (mean v_z
+   = -g t), and kernel vs plain agreement in x and v, and count the kernel
+   launches of that run;
 4. time each kernel at that path's shapes, back to back (inputs warm in
    the L2 cache) and with the cache flushed before every call (cold), beside
    its plain version and its bound: the larger of its bytes over the card's
-   memory rate and its operations over the card's float32 rate.
+   memory rate and its operations over the card's float32 rate; K1 from
+   block windows also beside the chain it replaced (the dense grid of
+   ``_grid_from_blocks``, then the dense K1), and an empty kernel at each
+   K1's launch shape.
 
 ``python3 chip_smoke.py --profile`` adds a fifth phase: ``torch.profiler``
 over 20 substeps of each kernel path, for the device time, the busy share
@@ -49,13 +56,14 @@ Then the MPC of ``drake_tpu_torch.bench`` (it reaches none of K1-K3):
 Then the coupled world of ``drake_tpu_torch.benchmarks`` (config 5's paddle
 pushing an MPM blob; K1 and K2 batched over lanes, K3 not on this path):
 
-9. K1 and K2 over 256 and 64 lanes (32^3 grid, A = 64, pmax = 512) against
-   their plain versions, on the coupled world's own state after a few steps
-   with v and F perturbed, timed as in phase 4 (K2 also against the bound
-   of its live blocks and channels only); and lanes of each batched call
-   against the unbatched call on that lane;
+9. both K1 and K2 over 256 and 64 lanes (32^3 grid, A = 64, pmax = 512)
+   against their plain versions, on the coupled world's own state after a
+   few steps with v and F perturbed, timed as in phase 4 (K2 also against
+   the bound of its live blocks and channels only); lanes of each batched
+   call against the unbatched call on that lane; and K1 from block windows
+   held to its contract on the order of the active ids;
 10. parity: 4 lanes through one coupled step (10 substeps, P2G through K2,
-    grid update through K1) and one ``mppi_step`` (2 scenarios x 2 samples,
+    grid update through K1 from block windows) and one ``mppi_step`` (2 scenarios x 2 samples,
     the same perturbations) in float32 on the card against float64 on the
     CPU: particle x, v, F, C, the rigid state, impulses, the MPPI controls
     and costs, within the bounds COUPLED_PARITY;
@@ -71,7 +79,8 @@ pushing an MPM blob; K1 and K2 batched over lanes, K3 not on this path):
     with ``--profile``, ``torch.profiler`` over one coupled step of the 256
     lanes (per coupled substep) and over one MPC step: device ms, busy
     share, kernels, the ranges ``coupling.substep``, ``coupling.contact`` and
-    ``coupled.sap_step``, and the K1 and K2 kernels.
+    ``coupled.sap_step``, the K1 and K2 kernels, and the cuBLAS gemv kernels
+    (none of them the grid's B x_node product, which K1 computes).
 
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -83,6 +92,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -187,6 +197,8 @@ KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
     "update_grid": ("cuda", "drake_tpu_torch/ops/csrc/mpm_kernels.cu",
                     "drake_tpu/ops/mpm_kernels.py:59"),
+    "update_grid_blocks": ("cuda", "drake_tpu_torch/ops/csrc/mpm_kernels.cu",
+                           "drake_tpu/ops/mpm_kernels.py:59"),
     "p2g_block": ("cuda", "drake_tpu_torch/ops/csrc/mpm_kernels.cu",
                   "drake_tpu/ops/mpm_kernels.py:267"),
     "g2p_block": ("cuda", "drake_tpu_torch/ops/csrc/mpm_kernels.cu",
@@ -257,9 +269,11 @@ def time_cold_ms(torch, fn, reps, flush):
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def time_kernel(torch, kernel, plain, flush, nbytes, flops):
+def time_kernel(torch, kernel, plain, flush, nbytes, flops, chain=None):
     """Warm (kernel, plain, plain, kernel: both orders within one run) and
-    cold times of a kernel beside its plain version and its bound."""
+    cold times of a kernel beside its plain version and its bound; and, for
+    a kernel that replaced a chain of calls, that chain's warm and cold
+    times (chain, kernel, kernel, chain)."""
     warm = [time_ms(torch, kernel, KERNEL_REPS)]
     p_ms = [time_ms(torch, plain, KERNEL_REPS), time_ms(torch, plain, KERNEL_REPS)]
     warm.append(time_ms(torch, kernel, KERNEL_REPS))
@@ -268,8 +282,23 @@ def time_kernel(torch, kernel, plain, flush, nbytes, flops):
     line = (f"kernel warm {warm!r} ms, cold {cold!r} ms, plain {p_ms!r} ms, bound {least!r} "
             f"ms ({nbytes} bytes, {flops} operations: {bound_by}), share of bound warm "
             f"{least * 2 / sum(warm):.3f} cold {least / cold:.3f}")
-    return {"ms": sum(warm) / 2, "cold_ms": cold, "plain_ms": sum(p_ms) / 2,
-            "bound_ms": least, "bound_by": bound_by}, line
+    out = {"ms": sum(warm) / 2, "cold_ms": cold, "plain_ms": sum(p_ms) / 2,
+           "bound_ms": least, "bound_by": bound_by}
+    if chain is not None:
+        c_ms = [time_ms(torch, chain, KERNEL_REPS)]
+        k_ms = [time_ms(torch, kernel, KERNEL_REPS), time_ms(torch, kernel, KERNEL_REPS)]
+        c_ms.append(time_ms(torch, chain, KERNEL_REPS))
+        c_cold = time_cold_ms(torch, chain, KERNEL_REPS, flush)
+        out.update(replaced_chain_ms=sum(c_ms) / 2, replaced_chain_cold_ms=c_cold)
+        line += (f"; the chain it replaced warm {c_ms!r} ms (kernel beside it {k_ms!r} ms), "
+                 f"cold {c_cold!r} ms")
+    return out, line
+
+
+def time_empty_launch(torch, mk, blocks, threads, dev):
+    """Warm ms of an empty kernel of `blocks` CTAs of `threads`, back to
+    back: what a launch of that shape costs with no work."""
+    return time_ms(torch, lambda: mk.empty_launch_cuda(blocks, threads, dev), KERNEL_REPS)
 
 
 def bound_ms(nbytes, flops):
@@ -290,12 +319,44 @@ def bound_k2(ref):
     return [("all", slice(None), 1e-5 * float(ref.abs().max()))]
 
 
+# K1 from block windows against its plain version: the same windows, summed
+# in the same order; only the rounding of B x_node (three products, fused
+# multiply-adds on the card) and the order of gravity's multiply-add differ.
+def bound_k1_blocks(ref):
+    return [("v", slice(None), 1e-5 * float(ref.abs().max()))]
+
+
 def k1_needed_bytes(mass):
     """The bytes K1's function needs: every node's mass read and velocity (3)
     written, and the momentum (3) of the nodes with mass only -- a node
     without mass gets velocity 0 whatever its momentum, and the kernel reads
     no other."""
     return 4 * (4 * mass.numel() + 3 * int((mass > 0).sum()))
+
+
+def k1_blocks_work(mk, active, grid_size):
+    """(bytes, operations) K1 from block windows needs: the 13 live channels
+    of every active block that is no sentinel and the active ids read once,
+    12 B of velocity written per node; 22 operations per window node of a
+    live block (u0 + B x_node and the four sums) and 9 per node (the
+    update)."""
+    nx, ny, nz = grid_size
+    live = int((active < (nx // 4) * (ny // 4) * (nz // 4)).sum())
+    nodes = active[..., 0].numel() * nx * ny * nz
+    return (4 * live * 13 * mk.P2G_NODES + 8 * active.numel() + 12 * nodes,
+            22 * live * mk.P2G_NODES + 9 * nodes)
+
+
+def k1_blocks_launch(active, grid_size, sms):
+    """(CTAs, threads) of K1 from block windows on a card of `sms` SMs, as
+    its launcher splits the work: tiles of (grid blocks (bx, by), a run of 8
+    along z), at most 32 a CTA, at most about 4 CTAs of 512 threads per SM
+    over all lanes, each CTA within one lane."""
+    nx, ny, nz = grid_size
+    lanes = active[..., 0].numel()
+    tiles = (nx // 4) * (ny // 4) * -(-(nz // 4) // 8)
+    per = min(32, -(-tiles * lanes // (4 * sms)))
+    return lanes * -(-tiles // per), 512
 
 
 def k2_live_bytes(mk, sort):
@@ -309,14 +370,16 @@ def k2_live_bytes(mk, sort):
 
 
 def kernel_cases(torch, np, mpm, mk, config, state):
-    """(name, kernel call, plain call, error bounds, bytes, operations) at
-    the substep inputs of `state`, perturbed so that stress, u0 and C are
-    all nonzero.  Bytes count what the function needs of every input, read
-    once, and every output written once: K1 the momentum of the nodes with
-    mass only (k1_needed_bytes), K2 packed columns 0:28, K3
-    columns 16:40 (taps, base, x, F) and every block's window, those of
-    blocks without particles too.  Operations count the float32 multiplies
-    and adds of the taken particles."""
+    """(name, kernel call, plain call, error bounds, bytes, operations, the
+    chain of calls the kernel replaced or None) at the substep inputs of
+    `state`, perturbed so that stress, u0 and C are all nonzero.  Bytes
+    count what the function needs of every input, read once, and every
+    output written once: K1 the momentum of the nodes with mass only
+    (k1_needed_bytes), K1 from block windows what k1_blocks_work counts, K2
+    packed columns 0:28, K3 columns 16:40 (taps, base, x, F) and every
+    block's window, those of blocks without particles too.  Operations count
+    the float32 multiplies and adds of the taken particles.  K1 and K1 from
+    block windows both take K2's plain output."""
     rng = np.random.default_rng(SEED)
     n = state.x.shape[0]
     dev = state.x.device
@@ -328,14 +391,17 @@ def kernel_cases(torch, np, mpm, mk, config, state):
     pmax = config.block_capacity
     dxi2 = 4.0 / config.dx**2
     sort = mpm.sort_particles(config, s)
-    grid = mpm.particle_to_grid_blocked(dataclasses.replace(config, xla_only=True), s)
+    p2g_args = (sort.packed, sort.starts, sort.counts, pmax)
+    win = mk.p2g_block_reference(*p2g_args)  # K2's plain output
+    grid = mpm._grid_from_blocks(config, sort, win)
     mass = grid.mass.contiguous()
     mom = grid.momentum.movedim(-1, 0).contiguous()
     grid_args = (mass, mom, config.dt, config.gravity, config.wall_width)
     vel = mk.update_grid_reference(*grid_args)
+    blocks_args = (win, sort.active, config.grid_size, config.dx, config.dt, config.gravity,
+                   config.wall_width)
     node_pos = mpm.window_node_pos(config, sort.active, torch.float32)
     vel_ext = mpm.block_velocity_windows(config, vel.movedim(0, -1), sort.active, node_pos)
-    p2g_args = (sort.packed, sort.starts, sort.counts, pmax)
     g2p_args = (sort.packed, vel_ext, sort.starts, sort.counts, pmax, dxi2, config.dt)
 
     def bound_k3(ref):
@@ -358,13 +424,17 @@ def kernel_cases(torch, np, mpm, mk, config, state):
     k1_flops = mass.numel() * 3 * 2
     k2_flops = taken * 27 * (2 + 2 * 13)
     k3_flops = taken * (27 * (2 + 2 * mk.G2P_VEL_CH) + 150)
+    k1b_bytes, k1b_flops = k1_blocks_work(mk, sort.active, config.grid_size)
     return [
         ("update_grid", lambda: mk.update_grid_cuda(*grid_args),
-         lambda: mk.update_grid_reference(*grid_args), bound_k1, k1_bytes, k1_flops),
+         lambda: mk.update_grid_reference(*grid_args), bound_k1, k1_bytes, k1_flops, None),
+        ("update_grid_blocks", lambda: mk.update_grid_blocks_cuda(*blocks_args),
+         lambda: mk.update_grid_blocks_reference(*blocks_args), bound_k1_blocks, k1b_bytes,
+         k1b_flops, lambda: mpm.update_grid(config, mpm._grid_from_blocks(config, sort, win))),
         ("p2g_block", lambda: mk.p2g_block_cuda(*p2g_args),
-         lambda: mk.p2g_block_reference(*p2g_args), bound_k2, k2_bytes, k2_flops),
+         lambda: mk.p2g_block_reference(*p2g_args), bound_k2, k2_bytes, k2_flops, None),
         ("g2p_block", lambda: mk.g2p_block_cuda(*g2p_args),
-         lambda: mk.g2p_block_reference(*g2p_args), bound_k3, k3_bytes, k3_flops),
+         lambda: mk.g2p_block_reference(*g2p_args), bound_k3, k3_bytes, k3_flops, None),
     ]
 
 
@@ -383,17 +453,26 @@ def kernel_parity(torch, name, kernel, plain, bounds):
     return float(diff.max()), ok, "; ".join(parts)
 
 
+MPM_PATHS = ("simulate", "blocked", "dense")
+
+
 def run_path(torch, mpm, path, config, state, n):
-    """Drive `n` substeps of one path; returns (state, device ms)."""
+    """Drive `n` substeps of one of MPM_PATHS; returns (state, device ms)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     if path == "simulate":
         out = mpm.simulate(config, state, n)
-    else:
+    elif path == "blocked":
         out = state
         for _ in range(n):
             out = mpm.mpm_substep_blocked(config, out)
+    else:  # "dense": the transfer functions composed by hand
+        out = state
+        for _ in range(n):
+            grid = mpm.particle_to_grid(config, out)
+            out = mpm.grid_to_particle(config, out, mpm.update_grid(config, grid))
+            out = out.replace(dropped=grid.dropped)
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
@@ -408,8 +487,8 @@ def _device_us(avg):
 
 
 def profile_paths(torch, mpm, scales, card):
-    """torch.profiler over PROFILE_SUBSTEPS substeps of each kernel path:
-    device time, busy share and kernel count per substep, and the three
+    """torch.profiler over PROFILE_SUBSTEPS substeps of the two substep
+    paths: device time, busy share and kernel count per substep, and the
     hand-written kernels' device time per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -438,7 +517,8 @@ def profile_paths(torch, mpm, scales, card):
                   f"{device_ms / traced_ms!r}, "
                   f"{count / PROFILE_SUBSTEPS!r} kernels/substep [{card}]")
             for a in avgs:
-                for kernel in ("update_grid_kernel", "p2g_block_kernel", "g2p_block_kernel"):
+                for kernel in ("update_grid_kernel", "update_grid_blocks_kernel",
+                               "p2g_block_kernel", "g2p_block_kernel"):
                     if kernel in a.key:
                         print(f"[profile scale={scale} n={n}] {path}: {kernel} "
                               f"{_device_us(a) / 1e3 / a.count!r} ms/call "
@@ -562,8 +642,9 @@ def profile_layers(torch, run, n, layers, top_layers, tag, unit, card, named=())
     inside the span of one of the range's annotations (a nested range's
     kernels count in each enclosing one; the profiler's own per-range
     totals count some device time twice) -- beside the range's inclusive
-    host time, and what lies outside every range of `top_layers`.  Kernels
-    whose names hold one of `named` get a line of their own."""
+    host time, and what lies outside every range of `top_layers`.  Each
+    string of `named` gets a line: the kernels whose names hold it (zero
+    where none ran)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -619,10 +700,11 @@ def profile_layers(torch, run, n, layers, top_layers, tag, unit, card, named=())
     print(f"[profile {tag}] outside {'/'.join(top_layers)}: device kernels "
           f"{outside / n!r} ms/{unit}; all kernels on the timeline {timeline_ms / n!r} "
           f"ms/{unit} [{card}]")
-    for a in kernels:
-        if any(name in a.key for name in named):
-            print(f"[profile {tag}] {a.key}: {_device_us(a) / 1e3 / n!r} ms/{unit}, "
-                  f"{a.count / n!r} launches/{unit} [{card}]")
+    for name in named:
+        hits = [a for a in kernels if name in a.key]
+        print(f"[profile {tag}] kernels named *{name}*: "
+              f"{sum(_device_us(a) for a in hits) / 1e3 / n!r} ms/{unit}, "
+              f"{sum(a.count for a in hits) / n!r} launches/{unit} [{card}]")
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     for a in top:
         print(f"[profile {tag}] kernel {a.key[:90]}: {_device_us(a) / 1e3 / n!r} ms/{unit}, "
@@ -677,10 +759,12 @@ def coupled_inputs(torch, np, paddle_blob, lanes, dev):
 
 
 def lane_kernel_cases(mpm, mk, config, state):
-    """(name, kernel call, plain call, error bounds, bytes, operations) of
-    K1 and K2 over the lanes of `state`: K1 on the lanes' grids from the
-    plain scatter P2G, K2 on the lanes' block sort.  Bytes and operations
-    are counted as in kernel_cases."""
+    """(name, kernel call, plain call, error bounds, bytes, operations, the
+    replaced chain or None) of both K1 and K2 over the lanes of `state`: K1
+    on the lanes' grids from the plain scatter P2G, K2 on the lanes' block
+    sort, K1 from block windows on K2's output (the kernel's: the plain K2
+    is held against it first).  Bytes and operations are counted as in
+    kernel_cases."""
     pmax = config.block_capacity
     grid = mpm.particle_to_grid_scatter(config, state)
     mass = grid.mass.contiguous()
@@ -688,43 +772,68 @@ def lane_kernel_cases(mpm, mk, config, state):
     grid_args = (mass, mom, config.dt, config.gravity, config.wall_width)
     sort = mpm.sort_particles(config, state)
     p2g_args = (sort.packed, sort.starts, sort.counts, pmax)
+    win = mk.p2g_block_cuda(*p2g_args)
+    blocks_args = (win, sort.active, config.grid_size, config.dx, config.dt, config.gravity,
+                   config.wall_width)
     rows = sort.packed.shape[0]
     blocks = sort.starts.numel()
     taken = rows - int(sort.dropped.sum())
     k1_bytes = k1_needed_bytes(mass)
     k2_bytes = 4 * (rows * 28 + blocks * mk.P2G_NV * mk.P2G_NODES) + 2 * blocks * 4
+    k1b_bytes, k1b_flops = k1_blocks_work(mk, sort.active, config.grid_size)
     return [
         ("update_grid", lambda: mk.update_grid_cuda(*grid_args),
          lambda: mk.update_grid_reference(*grid_args), bound_k1, k1_bytes,
-         mass.numel() * 3 * 2),
+         mass.numel() * 3 * 2, None),
         ("p2g_block", lambda: mk.p2g_block_cuda(*p2g_args),
          lambda: mk.p2g_block_reference(*p2g_args), bound_k2, k2_bytes,
-         taken * 27 * (2 + 2 * 13)),
-    ], grid_args, sort
+         taken * 27 * (2 + 2 * 13), None),
+        ("update_grid_blocks", lambda: mk.update_grid_blocks_cuda(*blocks_args),
+         lambda: mk.update_grid_blocks_reference(*blocks_args), bound_k1_blocks, k1b_bytes,
+         k1b_flops, lambda: mpm.update_grid(config, mpm._grid_from_blocks(config, sort, win))),
+    ], grid_args, sort, blocks_args
 
 
-def lane_checks(torch, mpm, mk, tree_map, config, state, grid_args, sort, vel, out, card):
-    """Lane l of the batched K1 and K2 calls against the unbatched calls on
-    lane l: K1 on lane l's grid (bit for bit), K2 on lane l's own block sort
+def lane_checks(torch, mpm, mk, tree_map, config, state, grid_args, sort, blocks_args, outs,
+                card):
+    """Lane l of the batched calls against the unbatched calls on lane l:
+    both K1 on lane l's input (bit for bit), K2 on lane l's own block sort
     of lane l's particles (its table equal to the batched one's lane l, its
-    output within the K2 bound)."""
+    output within the K2 bound).  Then K1 from block windows on lane 0's
+    active ids (and windows) reversed: lane 0 must come out NaN and every
+    other lane as before."""
     lanes, n = state.x.shape[:2]
+    vel, out, vel_b = outs["update_grid"], outs["p2g_block"], outs["update_grid_blocks"]
     for lane in sorted({0, lanes // 2, lanes - 1}):
         vel_l = mk.update_grid_cuda(grid_args[0][lane], grid_args[1][lane], *grid_args[2:])
+        vel_bl = mk.update_grid_blocks_cuda(blocks_args[0][lane], blocks_args[1][lane],
+                                            *blocks_args[2:])
         one = mpm.sort_particles(config, tree_map(lambda t: t[lane], state))
         out_l = mk.p2g_block_cuda(one.packed, one.starts, one.counts, config.block_capacity)
         torch.cuda.synchronize()
         check(torch.equal(vel_l, vel[lane]), f"update_grid: lane {lane} differs from its own call")
+        check(torch.equal(vel_bl, vel_b[lane]),
+              f"update_grid_blocks: lane {lane} differs from its own call")
         check(torch.equal(one.active, sort.active[lane])
               and torch.equal(one.counts, sort.counts[lane])
               and torch.equal(one.starts + lane * n, sort.starts[lane]),
               f"sort_particles: lane {lane}'s block table differs from its own sort")
         err = float((out_l - out[lane]).abs().max())
         bound = bound_k2(out[lane])[0][2]
-        print(f"[lanes L={lanes}] lane {lane}: update_grid equal to its own call; block "
-              f"table equal; p2g_block max|batched - own| = {err:.3e} (<= {bound:.3e}) "
-              f"{'ok' if err <= bound else 'FAIL'} [{card}]")
+        print(f"[lanes L={lanes}] lane {lane}: update_grid and update_grid_blocks equal to "
+              f"their own calls; block table equal; p2g_block max|batched - own| = "
+              f"{err:.3e} (<= {bound:.3e}) {'ok' if err <= bound else 'FAIL'} [{card}]")
         check(err <= bound, f"p2g_block: lane {lane} differs from its own call")
+    win, active = blocks_args[0].clone(), blocks_args[1].clone()
+    win[0], active[0] = win[0].flip(0), active[0].flip(0)
+    bad = mk.update_grid_blocks_cuda(win, active, *blocks_args[2:])
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(bad[0]).all()),
+          "update_grid_blocks: a lane with its active ids reversed was not marked NaN")
+    check(torch.equal(bad[1:], vel_b[1:]),
+          "update_grid_blocks: a lane with its active ids reversed changed another lane")
+    print(f"[lanes L={lanes}] update_grid_blocks: lane 0's active ids reversed -> NaN in "
+          f"lane 0, the other {lanes - 1} lanes unchanged ok [{card}]")
 
 
 def coupled_parity_values(torch, paddle_blob, cpl, mppi, tree_map, device, dtype):
@@ -805,10 +914,10 @@ def coupled_world_phase(torch, mk, bench_world, dev, card):
                               xla_only=xla_only)
         launches = dict(mk.LAUNCHES)
         label = "plain" if xla_only else "kernel"
-        # A warm-up rollout and the timed one, one K1 and one K2 launch a
-        # substep over all lanes.
+        # A warm-up rollout and the timed one, one K2 and one launch of K1
+        # from block windows a substep over all lanes, the dense K1 never.
         n = 0 if xla_only else 2 * COUPLED_HORIZON * res["substeps_per_step"]
-        want = {"update_grid": n, "p2g_block": n, "g2p_block": 0}
+        want = {"update_grid": 0, "update_grid_blocks": n, "p2g_block": n, "g2p_block": 0}
         print(f"[coupled world {label}] K={res['lanes']} horizon={res['horizon']} x "
               f"{res['substeps_per_step']} substeps, {res['particles']} particles a lane: "
               f"{res['substeps_per_s']!r} substeps/s (wall {res['wall_s']!r} s, CUDA events "
@@ -845,7 +954,7 @@ def config5_phase(torch, mk, bench_mpc, dev, card):
     # Each MPC step: one MPPI solve over the horizon, then the applied step.
     per_step = (res["horizon"] + 1) * res["substeps_per_step"]
     n = (CONFIG5_STEPS + CONFIG5_WARMUP_STEPS) * per_step
-    want = {"update_grid": n, "p2g_block": n, "g2p_block": 0}
+    want = {"update_grid": 0, "update_grid_blocks": n, "p2g_block": n, "g2p_block": 0}
     print(f"[config5] {res['scenarios']} scenarios x {res['samples']} samples = "
           f"{res['scenarios'] * res['samples']} lanes, horizon {res['horizon']} x "
           f"{res['substeps_per_step']} substeps, {res['steps']} MPC steps, float32 TF32 off: "
@@ -870,14 +979,14 @@ def coupled_profile(torch, bench_mpc, mppi, tree_map, res, dev, card):
     """With --profile: torch.profiler over one coupled step of config 5's
     256 lanes (per coupled substep: its tenth, SAP included) and over one
     MPC step, both from the main path's state after a third of its steps;
-    the ranges coupling.substep, coupling.contact and coupled.sap_step and
-    the K1 and K2 kernels."""
+    the ranges coupling.substep, coupling.contact and coupled.sap_step, the
+    K1 and K2 kernels, and the cuBLAS gemv kernels."""
     w, _, opts, dynamics, _ = bench_mpc.make_problem(CONFIG5_SCENARIOS, CONFIG5_SAMPLES,
                                                      SEED, dev)
     state = tree_map(lambda t: t[:, CONFIG5_STEPS // 3].contiguous(), res["states"])
     lanes = tree_map(lambda t: t.repeat_interleave(CONFIG5_SAMPLES, dim=0), state)
     u = torch.full((CONFIG5_SCENARIOS * CONFIG5_SAMPLES, 1), 10.0, device=dev)
-    named = ("update_grid_kernel", "p2g_block_kernel")
+    named = ("update_grid_kernel", "update_grid_blocks_kernel", "p2g_block_kernel", "gemv")
     profile_layers(torch, lambda: w.world.step(w.params, lanes, u),
                    w.world.substeps_per_step, COUPLED_LAYERS, COUPLED_TOP_LAYERS,
                    f"config5 coupled step L={u.shape[0]}", "coupled substep", card, named)
@@ -936,7 +1045,7 @@ def main(argv) -> int:
         tag = (f"scale={scale} n={state.x.shape[0]} A={config.max_active_blocks} "
                f"pmax={config.block_capacity}")
         dropped = int(mpm.sort_particles(config, state).dropped)
-        for name, kernel, plain, bounds, _, _ in kernel_cases(
+        for name, kernel, plain, bounds, _, _, _ in kernel_cases(
                 torch, np, mpm, mk, config, state):
             # kernel_parity synchronises: a fault shows at the kernel at fault.
             err, ok, detail = kernel_parity(torch, name, kernel, plain, bounds)
@@ -956,7 +1065,7 @@ def main(argv) -> int:
     for scale, (config, state) in scales.items():
         check(parity(scale, config, state) == 0, "the bench scene dropped particles")
         # Warm-up of every path before the counted run.
-        for path in ("simulate", "blocked"):
+        for path in MPM_PATHS:
             for cfg in (config, dataclasses.replace(config, xla_only=True)):
                 run_path(torch, mpm, path, cfg, state, WARMUP_SUBSTEPS)
     torch.cuda.synchronize()
@@ -967,7 +1076,7 @@ def main(argv) -> int:
     per_substep = {name: {} for name in KERNELS}
     for scale, (config, state) in scales.items():
         plain_cfg = dataclasses.replace(config, xla_only=True)
-        for path in ("simulate", "blocked"):
+        for path in MPM_PATHS:
             before = dict(mk.LAUNCHES)
             out_k, ms_k = run_path(torch, mpm, path, config, state, SUBSTEPS)
             mid = dict(mk.LAUNCHES)
@@ -975,8 +1084,11 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             launched = {k: mid[k] - before[k] for k in mk.LAUNCHES}
             check(dict(mk.LAUNCHES) == mid, f"plain {path} path launched a kernel")
-            want = {"update_grid": SUBSTEPS, "p2g_block": SUBSTEPS,
-                    "g2p_block": SUBSTEPS if path == "blocked" else 0}
+            # The substeps take K1 from block windows, the hand-composed
+            # transfers the dense K1.
+            dense = SUBSTEPS if path == "dense" else 0
+            want = {"update_grid": dense, "update_grid_blocks": SUBSTEPS - dense,
+                    "p2g_block": SUBSTEPS, "g2p_block": SUBSTEPS if path == "blocked" else 0}
             check(launched == want, f"{path} launches {launched}, expected {want}")
             for name in KERNELS:
                 per_substep[name][path] = launched[name] / SUBSTEPS
@@ -1014,10 +1126,21 @@ def main(argv) -> int:
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     for scale, (config, state) in scales.items():
         n = state.x.shape[0]
-        for name, kernel, plain, _, nbytes, flops in kernel_cases(
+        for name, kernel, plain, _, nbytes, flops, chain in kernel_cases(
                 torch, np, mpm, mk, config, state):
-            timed[name], line = time_kernel(torch, kernel, plain, flush, nbytes, flops)
+            timed[name], line = time_kernel(torch, kernel, plain, flush, nbytes, flops, chain)
             print(f"[time scale={scale} n={n}] {name}: {line} [{card}]")
+        active = mpm.sort_particles(config, state).active
+        shapes = {"update_grid": (-(-math.prod(config.grid_size) // 256), 256),
+                  "update_grid_blocks": k1_blocks_launch(
+                      active, config.grid_size,
+                      torch.cuda.get_device_properties(dev).multi_processor_count)}
+        for name, (blocks, threads) in shapes.items():
+            empty = time_empty_launch(torch, mk, blocks, threads, dev)
+            print(f"[time scale={scale} n={n}] empty kernel at {name}'s launch shape "
+                  f"({blocks} CTAs x {threads} threads): warm {empty!r} ms, "
+                  f"{empty / timed[name]['ms']:.3f} of {name}'s warm time [{card}]")
+            timed[name]["empty_launch_ms"] = empty
     del flush
 
     # ---- 5. profile (on request) --------------------------------------------
@@ -1032,24 +1155,24 @@ def main(argv) -> int:
     del res, info
 
     # ---- 9. K1 and K2 over lanes, at the coupled world's shapes -------------
-    coupled_timed = {"update_grid": {}, "p2g_block": {}}
+    coupled_timed = {"update_grid": {}, "update_grid_blocks": {}, "p2g_block": {}}
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     for lanes in COUPLED_KERNEL_LANES:
         config, state = coupled_inputs(torch, np, paddle_blob, lanes, dev)
-        cases, grid_args, sort = lane_kernel_cases(mpm, mk, config, state)
+        cases, grid_args, sort, blocks_args = lane_kernel_cases(mpm, mk, config, state)
         tag = (f"lanes L={lanes} grid {config.grid_size} A={config.max_active_blocks} "
                f"pmax={config.block_capacity} rows={sort.packed.shape[0]} "
                f"dropped={int(sort.dropped.sum())}")
         check(int(sort.dropped.sum()) == 0, f"{tag}: the coupled scene dropped particles")
         outs = {}
-        for name, kernel, plain, bounds, nbytes, flops in cases:
+        for name, kernel, plain, bounds, nbytes, flops, chain in cases:
             err, ok, detail = kernel_parity(torch, name, kernel, plain, bounds)
             errs[name] = max(errs[name], err)
             print(f"[parity {tag}] {name}: max|kernel - plain| = {err:.3e} ({detail}) "
                   f"{'ok' if ok else 'FAIL'}")
             check(ok, f"{name} disagrees with its plain version at {tag}")
             coupled_timed[name][lanes], line = time_kernel(torch, kernel, plain, flush,
-                                                           nbytes, flops)
+                                                           nbytes, flops, chain)
             coupled_timed[name][lanes]["max_abs_err"] = err
             print(f"[time {tag}] {name}: {line} [{card}]")
             if name == "p2g_block":
@@ -1060,9 +1183,9 @@ def main(argv) -> int:
                       f"{live_ms!r} ms ({live_bytes} bytes), share of it warm "
                       f"{live_ms / coupled_timed[name][lanes]['ms']:.3f} [{card}]")
             outs[name] = kernel()
-        lane_checks(torch, mpm, mk, tree_map, config, state, grid_args, sort,
-                    outs["update_grid"], outs["p2g_block"], card)
-        del cases, grid_args, sort, outs, state
+        lane_checks(torch, mpm, mk, tree_map, config, state, grid_args, sort, blocks_args,
+                    outs, card)
+        del cases, grid_args, sort, blocks_args, outs, state
     del flush
     torch.cuda.empty_cache()
 
@@ -1075,14 +1198,13 @@ def main(argv) -> int:
         torch, mk, bench_coupled_mpc, dev, card)
     if "--profile" in argv:
         coupled_profile(torch, bench_coupled_mpc, mppi, tree_map, res5, dev, card)
-    for name in ("update_grid", "p2g_block"):
+    for name in ("update_grid_blocks", "p2g_block"):
         for path, counts in list(by_path.items())[1:]:
             check(counts[name] > 0, f"{name} was never launched by {path}")
 
     # Times at the top level are those of the larger MPM size (the last
     # timed), under "coupled" those of phase 9 by lane count; no single
-    # PyTorch call computes any of the three functions, so library_ms is
-    # null.
+    # PyTorch call computes any of these functions, so library_ms is null.
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(counts[name] for counts in by_path.values()),

@@ -1,7 +1,8 @@
 """MPM <-> rigid-body two-way coupling on the card.
 
 The PyTorch counterpart of ``drake_tpu/mpm/coupling.py``.  Each coupled
-substep runs the MPM transfers (P2G, grid update, G2P), then the penalty
+substep runs the MPM transfers (P2G and grid update by
+``solver.grid_velocity``, then G2P), then the penalty
 contact of every particle against the analytic SDF of each rigid geometry:
 
     f_n = (k (-phi) - d vn_rel) n        (clamped >= 0, phi < 0 only)
@@ -134,11 +135,10 @@ def coupled_substep(
 ):
     """One MPM substep with rigid contact: (state, rigid impulses).  The
     state's ``dropped`` is this substep's P2G count."""
-    grid = mpm.particle_to_grid(config, state)
-    grid_vel = mpm.update_grid(config, grid)
+    grid_vel, dropped = mpm.grid_velocity(config, state)
     state = mpm.grid_to_particle(config, state, grid_vel)
     v_new, impulses = particle_rigid_contact(contact, state, geoms, config.dt)
-    return state.replace(v=v_new, dropped=grid.dropped), impulses
+    return state.replace(v=v_new, dropped=dropped), impulses
 
 
 def simulate_coupled(

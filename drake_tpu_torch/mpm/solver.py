@@ -6,10 +6,12 @@ GPU pipeline it re-derives is multibody/gpu_mpm/cuda_mpm_solver.cu
 
 - Dense background grid, quadratic B-spline weights, APIC/MLS-MPM transfers
   with the fused force B = -dt 4/dx^2 V0 P F^T + m C.
-- P2G: on CUDA the blocked path (sort by 4^3-cell block, fixed-size
-  active-block compaction, the K2 kernel per block, halo combine); on the
-  CPU the direct ``index_add_`` scatter.
-- Grid update: the K1 kernel on CUDA.
+- P2G and grid update (``grid_velocity``): on CUDA the blocked path -- sort
+  by 4^3-cell block, fixed-size active-block compaction, the K2 kernel per
+  block, then K1 from K2's block windows (halo combine, B x_node and the
+  update in one kernel, no dense grid); on the CPU the direct
+  ``index_add_`` scatter and the plain grid update.  ``particle_to_grid``
+  and ``update_grid`` (the dense K1) keep the dense grid between them.
 - G2P: the 27-tap stencil gather in plain torch, or, in the fused
   ``mpm_substep_blocked``, the K3 kernel over the same block sort.
 
@@ -389,60 +391,29 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
 def window_node_pos(config: MpmConfig, active, dtype):
     """(..., A, 216, 3) world positions of each active block's 6^3 window
     nodes, node l = (i*6+j)*6+k at grid index 4*block + (i, j, k)."""
-    _, ny, nz = config.grid_size
-    nby, nbz = ny // 4, nz // 4
-    ablock = torch.stack(
-        [active // (nbz * nby), (active // nbz) % nby, active % nbz], dim=-1
+    return mpm_kernels.window_node_pos(config.grid_size, config.dx, active, dtype)
+
+
+def _grid_from_blocks(config: MpmConfig, sort: BlockSort, out) -> GridState:
+    """The dense grid of each lane from the K2 output ([L,] A, 16, 216)
+    (``mpm_kernels.grid_from_blocks_reference``)."""
+    mass, momentum = mpm_kernels.grid_from_blocks_reference(
+        out, sort.active, config.grid_size, config.dx
     )
-    l_range = torch.arange(6, device=active.device)
-    ll = torch.stack(
-        torch.meshgrid(l_range, l_range, l_range, indexing="ij"), dim=-1
-    ).reshape(P2G_NODES, 3)
-    return (4 * ablock[..., None, :] + ll).to(dtype) * config.dx
+    return GridState(mass=mass, momentum=momentum, dropped=sort.dropped)
 
 
-def _combine(T, block_axis, local_axis, nb):
-    """Halo combine along one axis: window row l of block b lands on grid
-    index 4b + l; rows 4 and 5 spill into block b+1's rows 0 and 1."""
-    core = T.movedim((block_axis, local_axis), (0, 1))
-    res = core[:, 0:4].clone()
-    res[1:, 0] += core[:-1, 4]
-    res[1:, 1] += core[:-1, 5]
-    return res.reshape((nb * 4,) + core.shape[2:]).movedim(0, block_axis)
-
-
-def _grid_from_blocks(config: MpmConfig, sort: BlockSort, out, node_pos) -> GridState:
-    """Turn the K2 output ([L,] A, 16, 216) into the dense grid of each
-    lane: add B x_node to the momentum, place each active block's window in
-    its lane's grid, combine the halos."""
-    nx, ny, nz = config.grid_size
-    nbx, nby, nbz = nx // 4, ny // 4, nz // 4
-    nblocks = nbx * nby * nbz
-    lanes = sort.active.shape[:-1]
-    L = math.prod(lanes)
-    LA = L * sort.active.shape[-1]
-    out = out.reshape(LA, mpm_kernels.P2G_NV, P2G_NODES)
-    M_blk = out[:, 0, :]
-    U_blk = out[:, 1:4, :].transpose(1, 2)  # (LA, 216, 3)
-    C_blk = out[:, 4:13, :].transpose(1, 2).reshape(LA, P2G_NODES, 3, 3)
-    mom_blk = U_blk + torch.einsum(
-        "alij,alj->ali", C_blk, node_pos.reshape(LA, P2G_NODES, 3)
+def _velocity_from_blocks(config: MpmConfig, sort: BlockSort) -> torch.Tensor:
+    """K2 over the block sort, then K1 from its block windows: the grid
+    velocity ([L,] nx, ny, nz, 3) with no dense grid in between."""
+    out = mpm_kernels.p2g_block(
+        sort.packed, sort.starts, sort.counts, config.block_capacity,
+        plain=config.xla_only,
     )
-    # Active ids are unique within a lane; sentinel entries (all zero) go to
-    # the extra row.
-    dest = sort.active.clamp(max=nblocks)
-    off = _lane_offsets(lanes, nblocks, dest.device, 1)
-    if off is not None:
-        dest = torch.where(dest < nblocks, dest + off, L * nblocks)
-    T = torch.zeros((L * nblocks + 1, P2G_NODES, 4), dtype=out.dtype, device=out.device)
-    T.index_add_(
-        0, dest.reshape(LA), torch.cat([M_blk[..., None], mom_blk], dim=-1),
+    return mpm_kernels.update_grid_blocks(
+        out, sort.active, config.grid_size, config.dx, config.dt, config.gravity,
+        config.wall_width, plain=config.xla_only,
     )
-    T = T[:-1].reshape(L, nbx, nby, nbz, 6, 6, 6, 4)
-    Tx = _combine(T, 1, 4, nbx)  # (L, nx, nby, nbz, 6, 6, 4)
-    Ty = _combine(Tx, 2, 4, nby)  # (L, nx, ny, nbz, 6, 4)
-    Tz = _combine(Ty, 3, 4, nbz).reshape(lanes + (nx, ny, nz, 4))
-    return GridState(mass=Tz[..., 0], momentum=Tz[..., 1:], dropped=sort.dropped)
 
 
 def particle_to_grid_blocked(config: MpmConfig, state: MpmState) -> GridState:
@@ -456,8 +427,7 @@ def particle_to_grid_blocked(config: MpmConfig, state: MpmState) -> GridState:
         sort.packed, sort.starts, sort.counts, config.block_capacity,
         plain=config.xla_only,
     )
-    node_pos = window_node_pos(config, sort.active, state.x.dtype)
-    return _grid_from_blocks(config, sort, out, node_pos)
+    return _grid_from_blocks(config, sort, out)
 
 
 def particle_to_grid_scatter(config: MpmConfig, state: MpmState) -> GridState:
@@ -596,18 +566,29 @@ def block_velocity_windows(config: MpmConfig, grid_vel, active, node_pos):
     ).contiguous()
 
 
+def grid_velocity(config: MpmConfig, state: MpmState):
+    """P2G and grid update: (grid velocity ([L,] nx, ny, nz, 3), the P2G's
+    ``dropped``).  On CUDA without ``config.xla_only``, the blocked path
+    with K1 from K2's block windows; on the CPU or under ``xla_only``,
+    ``update_grid(particle_to_grid(...))``."""
+    if config.xla_only or state.x.device.type == "cpu":
+        grid = particle_to_grid(config, state)
+        return update_grid(config, grid), grid.dropped
+    sort = sort_particles(config, state)
+    return _velocity_from_blocks(config, sort), sort.dropped
+
+
 def mpm_substep(config: MpmConfig, state: MpmState) -> MpmState:
-    """One explicit MLS-MPM substep: P2G -> grid update -> stencil G2P."""
-    grid = particle_to_grid(config, state)
-    grid_vel = update_grid(config, grid)
+    """One explicit MLS-MPM substep: P2G and grid update -> stencil G2P."""
+    grid_vel, dropped = grid_velocity(config, state)
     out = grid_to_particle(config, state, grid_vel)
-    return out.replace(dropped=grid.dropped)
+    return out.replace(dropped=dropped)
 
 
 def mpm_substep_blocked(config: MpmConfig, state: MpmState) -> MpmState:
     """Fused blocked substep: ONE block sort shared by P2G (K2) and G2P (K3),
-    the grid update (K1) between them, windows by strided slicing, and an
-    unsort back to particle order.  Particles dropped by the capacities keep
+    the grid update from K2's block windows between them, K3's windows by
+    strided slicing, and an unsort back to particle order.  Particles dropped by the capacities keep
     their old state.  One state only (no lane axis)."""
     if state.x.dim() != 2:
         raise NotImplementedError(
@@ -620,13 +601,8 @@ def mpm_substep_blocked(config: MpmConfig, state: MpmState) -> MpmState:
     PMAX = config.block_capacity
 
     sort = sort_particles(config, state)
-    out = mpm_kernels.p2g_block(
-        sort.packed, sort.starts, sort.counts, PMAX, plain=config.xla_only
-    )
+    grid_vel = _velocity_from_blocks(config, sort)  # (nx, ny, nz, 3)
     node_pos = window_node_pos(config, sort.active, dtype)
-    grid = _grid_from_blocks(config, sort, out, node_pos)
-    grid_vel = update_grid(config, grid)  # (nx, ny, nz, 3)
-
     vel_ext = block_velocity_windows(config, grid_vel, sort.active, node_pos)
     out_p = mpm_kernels.g2p_block(
         sort.packed, vel_ext, sort.starts, sort.counts, PMAX, 4.0 / dx**2, dt,

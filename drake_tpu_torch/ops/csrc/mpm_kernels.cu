@@ -39,6 +39,12 @@ constexpr int kG2PWarps = 4;        // warps of a K3 CTA
 constexpr int kG2PRowVec = 6;       // float4 per row in and out: packed 16:40
 constexpr int kG2PRowStride = 7;    // staged row stride in float4 (odd: no
                                     // bank conflict between a warp's rows)
+constexpr int kK1Threads = 256;     // dense K1
+constexpr int kK1bRun = 8;          // grid blocks along z of a K1 CTA
+constexpr int kK1bZ = 4 * kK1bRun;  // its nodes along z
+constexpr int kK1bThreads = 16 * kK1bZ;  // one node each: 4 x 4 x kK1bZ
+constexpr int kK1bSlots = kK1bRun + 1;   // covering blocks along z, one below
+constexpr int kK1bMaxTiles = 32;         // tiles a K1 CTA walks, at most
 
 // 16-byte asynchronous copy from device memory into shared memory (both
 // addresses 16-byte aligned), its commit into a group, and the wait until at
@@ -69,6 +75,19 @@ __device__ __forceinline__ int block_count(int start, int count, int pmax,
   return max(0, min(min(count, pmax), n_rows - start));
 }
 
+// K1's update of one velocity component: p / max(m, 1e-12) + dt g on a node
+// with mass, else 0; and whether a node lies outside the sticky walls.
+__device__ __forceinline__ float grid_velocity(float p, float m, float dt,
+                                               float g) {
+  return m > 0.f ? p / fmaxf(m, 1e-12f) + dt * g : 0.f;
+}
+
+__device__ __forceinline__ bool inside_walls(int i, int j, int k, int nx,
+                                             int ny, int nz, int wall) {
+  return i >= wall && i < nx - wall && j >= wall && j < ny - wall &&
+         k >= wall && k < nz - wall;
+}
+
 // K1 -- grid update.  Replaces _update_grid_kernel (drake_tpu/ops/
 // mpm_kernels.py:59), which ran one (ny, nz) x-slab per grid step in VMEM
 // (B * nx slabs under vmap, its wall test on the slab index modulo nx).
@@ -78,32 +97,199 @@ __device__ __forceinline__ int block_count(int start, int count, int pmax,
 // the wall mask is recomputed from the index instead of read.  Lanes
 // (independent grids stored one after the other, mass (L, nx, ny, nz),
 // momentum and velocity (L, 3, nx, ny, nz)) are the grid's y dimension, and
-// the wall test uses the node's index within its lane.
-__global__ void update_grid_kernel(const float* __restrict__ mass,
-                                   const float* __restrict__ mom,
-                                   float* __restrict__ vel, int nx, int ny,
-                                   int nz, float dt, float gx, float gy,
-                                   float gz, int wall) {
-  const int64_t n_nodes = static_cast<int64_t>(nx) * ny * nz;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+// the wall test uses the node's index within its lane.  Index arithmetic is
+// 32-bit within a lane (the wrapper keeps 3 nx ny nz below 2^31), the lane's
+// offset 64-bit.  Kept for dense grids; the substeps take the grid update
+// from K2's block windows instead (update_grid_blocks_kernel below).
+__global__ void __launch_bounds__(kK1Threads)
+update_grid_kernel(const float* __restrict__ mass,
+                   const float* __restrict__ mom, float* __restrict__ vel,
+                   int nx, int ny, int nz, float dt, float gx, float gy,
+                   float gz, int wall) {
+  const int n_nodes = nx * ny * nz;
+  const int idx = blockIdx.x * kK1Threads + threadIdx.x;
   if (idx >= n_nodes) return;
   const int64_t lane = blockIdx.y;
   mass += lane * n_nodes;
   mom += lane * 3 * n_nodes;
   vel += lane * 3 * n_nodes;
-  const int k = static_cast<int>(idx % nz);
-  const int j = static_cast<int>((idx / nz) % ny);
-  const int i = static_cast<int>(idx / (static_cast<int64_t>(ny) * nz));
-  const bool inside = i >= wall && i < nx - wall && j >= wall &&
-                      j < ny - wall && k >= wall && k < nz - wall;
+  const int k = idx % nz;
+  const int j = (idx / nz) % ny;
+  const int i = idx / (ny * nz);
+  const bool inside = inside_walls(i, j, k, nx, ny, nz, wall);
   const float m = mass[idx];
-  const bool active = m > 0.f;
-  const float denom = fmaxf(m, 1e-12f);
   const float g[3] = {gx, gy, gz};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float v = active ? mom[c * n_nodes + idx] / denom + dt * g[c] : 0.f;
+    const float v = grid_velocity(m > 0.f ? mom[c * n_nodes + idx] : 0.f, m, dt, g[c]);
     vel[c * n_nodes + idx] = inside ? v : 0.f;
+  }
+}
+
+// An empty kernel: its back-to-back time at K1's launch shape is what the
+// launch and the CTAs' scheduling alone cost (chip_smoke.py, phase 4).
+__global__ void empty_kernel() {}
+
+// K1 from block windows -- the grid update of the substeps.  Replaces, with
+// the dense K1 above, _update_grid_kernel (drake_tpu/ops/mpm_kernels.py:59),
+// and with it the dense grid that the TPU path builds between K2 and K1: the
+// block table, the halo combine and the B x_node product of
+// particle_to_grid_blocked (drake_tpu/mpm/solver.py:365-400).  Input: K2's
+// output (L * A, 16, 216), channel-major per block, channels [m, u0 (3),
+// B (9), pad (3)], window node l = (lx * 6 + ly) * 6 + lz at grid index
+// 4 * block + (lx, ly, lz); and each lane's active block ids (L, A),
+// ascending, the sentinel nblocks last.  Output: the grid velocity
+// (L, nx, ny, nz, 3), node-major.  Node (i, j, k) of block b, local index
+// (a, b', c), sums the window of b at (a, b', c) and, along each axis where
+// the local index is < 2 and the block index > 0, the window of the block
+// below on that axis at local index + 4: at most 8 blocks, of which only
+// those in the lane's active list count.  Each contributes [m, u0 + B
+// x_node], x_node = float(grid index) * dx; the 8 terms are added in the
+// order of the plain version's halo combine (x, then y, then z), a missing
+// term as an exact zero, so the two differ only in the rounding of B x_node.
+// Then K1's update: p / max(m, 1e-12) + dt g on nodes with mass, zero within
+// `wall` nodes of each face of the lane's grid.
+// Bound on this card: bytes -- the 13 live channels of each active block read
+// once and 12 B of velocity written per node, most of it the zeros of nodes
+// no active block covers.  Design: a tile is (lane, grid blocks (bx, by), a
+// run of kK1bRun blocks along z); a CTA walks `tiles_per_cta` consecutive
+// tiles of one lane, so that its fixed cost (the launch, copying the lane's
+// active ids into shared memory) is paid once for several tiles.  Up front
+// the CTA finds, by binary search in shared memory, the slots of every
+// covering block of all its tiles (one round, all threads) and marks the
+// tiles some active block covers.  After that one barrier each warp runs on
+// its own: warp w takes the (i, j) row w of every tile, 32 nodes along z,
+// one a lane, and writes the row's 384 contiguous bytes as float4 (a warp
+// shuffle moves each component to the lane that stores it); a tile none
+// covers costs a warp one store.  At config 5's 256 lanes that is 262,144
+// warp-tiles, most of them empty, so their instructions count: the walk
+// steps the tile coordinates without a division.  An active list out of ascending order
+// would make the search miss blocks: its lane gets NaN instead of wrong
+// sums.  Indices within a lane are 32-bit, offsets into the (L * A, 16, 216)
+// input and the output 64-bit.
+__global__ void __launch_bounds__(kK1bThreads)
+update_grid_blocks_kernel(const float* __restrict__ win,
+                          const int64_t* __restrict__ active, int num_active,
+                          int nx, int ny, int nz, float dx, float dt,
+                          float gx, float gy, float gz, int wall,
+                          int tiles_per_cta, float* __restrict__ vel) {
+  extern __shared__ int ids[];  // the lane's active block ids
+  // [tile][dx * 2 + dy][bz - bz0 + 1]: slot of the covering block, or -1.
+  __shared__ int slot[kK1bMaxTiles][4][kK1bSlots];
+  __shared__ int covered[kK1bMaxTiles];
+  const int nby = ny >> 2, nbz = nz >> 2;
+  const int nblocks = (nx >> 2) * nby * nbz;
+  const int runs = (nbz + kK1bRun - 1) / kK1bRun;
+  const int first = blockIdx.x * tiles_per_cta;
+  const int ntiles = min(tiles_per_cta, (nx >> 2) * nby * runs - first);
+  const int lane = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int64_t* act = active + static_cast<int64_t>(lane) * num_active;
+  for (int e = tid; e < num_active; e += kK1bThreads) {
+    const int64_t id = act[e];
+    ids[e] = id < 0 ? -1 : static_cast<int>(id < nblocks ? id : nblocks);
+  }
+  if (tid < ntiles) covered[tid] = 0;
+  __syncthreads();
+  bool unsorted = false;
+  for (int e = tid; e + 1 < num_active; e += kK1bThreads) {
+    unsorted = unsorted || ids[e] > ids[e + 1];
+  }
+  for (int e = tid; e < ntiles * 4 * kK1bSlots; e += kK1bThreads) {
+    const int q = e / (4 * kK1bSlots), p = (e / kK1bSlots) % 4, r = e % kK1bSlots;
+    const int t = first + q;
+    const int cbx = t / runs / nby - (p >> 1), cby = (t / runs) % nby - (p & 1);
+    const int cbz = (t % runs) * kK1bRun + r - 1;
+    int s = -1;
+    if (cbx >= 0 && cby >= 0 && cbz >= 0 && cbz < nbz) {
+      const int id = (cbx * nby + cby) * nbz + cbz;
+      int lo = 0, hi = num_active;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (ids[mid] < id) lo = mid + 1; else hi = mid;
+      }
+      if (lo < num_active && ids[lo] == id) s = lo;
+    }
+    slot[q][p][r] = s;
+    if (s >= 0) covered[q] = 1;
+  }
+  // Also completes the slot table and the covered marks.
+  const bool bad = __syncthreads_or(unsorted);
+
+  // Warp w takes row (a, b') = (w / 4, w % 4) of every tile: 32 nodes along
+  // z, one a lane.
+  static_assert(kK1bZ == 32 && kK1bThreads == 16 * 32, "a warp per row of a tile");
+  const int row = tid >> 5, kk = tid & 31;
+  const int a = row >> 2, b = row & 3, c = kk & 3;
+  const float g[3] = {gx, gy, gz};
+  // The first tile's block coordinates; the loop steps them (z runs, then
+  // by, then bx) with no division.
+  int run = first % runs, by = first / runs % nby, bx = first / runs / nby;
+  for (int q = 0; q < ntiles;
+       ++q, run = run + 1 < runs ? run + 1 : 0, by += run == 0,
+       bx += run == 0 && by == nby, by = by == nby ? 0 : by) {
+    const int bz0 = run * kK1bRun;
+    const int zlen = min(kK1bZ, nz - 4 * bz0);  // nodes of the run along z
+    const int i = 4 * bx + a, j = 4 * by + b, k = 4 * bz0 + kk;
+    // The row's zlen nodes, 12 zlen bytes from node (i, j, 4 bz0) on.
+    float4* out4 = reinterpret_cast<float4*>(
+        vel + ((static_cast<int64_t>(lane) * nx + i) * ny + j) * static_cast<int64_t>(nz) * 3 +
+        12 * bz0);
+    const int row_vec = zlen * 3 / 4;
+    if (bad || !covered[q]) {
+      const float f = bad ? __int_as_float(0x7fc00000) : 0.f;
+      if (kk < row_vec) out4[kk] = make_float4(f, f, f, f);
+      continue;
+    }
+    float v[3] = {0.f, 0.f, 0.f};
+    if (kk < zlen) {
+      const float xn[3] = {static_cast<float>(i) * dx, static_cast<float>(j) * dx,
+                           static_cast<float>(k) * dx};
+      // Term u = (dx, dy, dz) bits (4, 2, 1): [m, p] of block (bx - dx,
+      // by - dy, bz - dz) at window node l, p = u0 + B x_node; 0 where that
+      // block does not count.
+      float tm[8], tp[3][8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int ox = u >> 2, oy = (u >> 1) & 1, oz = u & 1;
+        const bool reach = (ox == 0 || a < 2) && (oy == 0 || b < 2) && (oz == 0 || c < 2);
+        const int sl = reach ? slot[q][ox * 2 + oy][(kk >> 2) + 1 - oz] : -1;
+        tm[u] = tp[0][u] = tp[1][u] = tp[2][u] = 0.f;
+        if (sl >= 0) {
+          const int l = ((a + 4 * ox) * 6 + (b + 4 * oy)) * 6 + (c + 4 * oz);
+          const float* w = win + (static_cast<int64_t>(lane) * num_active + sl) *
+                                     kP2GChannels * kNodes + l;
+          tm[u] = w[0];
+#pragma unroll
+          for (int r = 0; r < 3; ++r) {
+            const float* B = w + (4 + 3 * r) * kNodes;
+            tp[r][u] = w[(1 + r) * kNodes] +
+                       fmaf(B[2 * kNodes], xn[2], fmaf(B[kNodes], xn[1], B[0] * xn[0]));
+          }
+        }
+      }
+      // ((t000 + t100) + (t010 + t110)) + ((t001 + t101) + (t011 + t111)).
+      auto tree = [](const float (&s)[8]) {
+        return ((s[0] + s[4]) + (s[2] + s[6])) + ((s[1] + s[5]) + (s[3] + s[7]));
+      };
+      const float m = tree(tm);
+      if (inside_walls(i, j, k, nx, ny, nz, wall)) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) v[r] = grid_velocity(tree(tp[r]), m, dt, g[r]);
+      }
+    }
+    // Lane e writes float4 e of the row, floats 4e .. 4e + 3: float f is
+    // component f % 3 of the node of lane f / 3.
+    float o[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int f = min(4 * kk + h, 3 * kK1bZ - 1);
+      const float v0 = __shfl_sync(0xffffffffu, v[0], f / 3);
+      const float v1 = __shfl_sync(0xffffffffu, v[1], f / 3);
+      const float v2 = __shfl_sync(0xffffffffu, v[2], f / 3);
+      o[h] = f % 3 == 0 ? v0 : (f % 3 == 1 ? v1 : v2);
+    }
+    if (kk < row_vec) out4[kk] = make_float4(o[0], o[1], o[2], o[3]);
   }
 }
 
@@ -482,11 +668,47 @@ int mpm_update_grid(const float* mass, const float* mom, float* vel, int lanes,
                     int nx, int ny, int nz, float dt, float gx, float gy,
                     float gz, int wall, void* stream) {
   const int64_t n_nodes = static_cast<int64_t>(nx) * ny * nz;
-  const int threads = 256;
-  const int64_t blocks = (n_nodes + threads - 1) / threads;
+  const int64_t blocks = (n_nodes + kK1Threads - 1) / kK1Threads;
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes));
-  update_grid_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  update_grid_kernel<<<grid, kK1Threads, 0, static_cast<cudaStream_t>(stream)>>>(
       mass, mom, vel, nx, ny, nz, dt, gx, gy, gz, wall);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mpm_update_grid_blocks(const float* win, const int64_t* active, int lanes,
+                           int num_active, int nx, int ny, int nz, float dx,
+                           float dt, float gx, float gy, float gz, int wall,
+                           float* vel, void* stream) {
+  // Tiles of a lane, split evenly over CTAs so that all lanes' CTAs number
+  // at most about four per SM (two are resident at a time), a CTA at most
+  // kK1bMaxTiles tiles.
+  const int tiles = (nx / 4) * (ny / 4) * ((nz / 4 + kK1bRun - 1) / kK1bRun);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t wanted = (static_cast<int64_t>(tiles) * lanes + 4 * sms - 1) / (4 * sms);
+  const int per = static_cast<int>(wanted < kK1bMaxTiles ? wanted : kK1bMaxTiles);
+  const int ctas = (tiles + per - 1) / per;
+  const int tiles_per_cta = (tiles + ctas - 1) / ctas;
+  const int smem = num_active * static_cast<int>(sizeof(int));
+  if (smem > 32 * 1024) {
+    err = cudaFuncSetAttribute(update_grid_blocks_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(ctas), static_cast<unsigned>(lanes));
+  update_grid_blocks_kernel<<<grid, kK1bThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      win, active, num_active, nx, ny, nz, dx, dt, gx, gy, gz, wall,
+      tiles_per_cta, vel);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mpm_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,12 +11,19 @@ Each public function dispatches on the device of its tensors:
 Every launch adds one to ``LAUNCHES[name]``, so a run can show that its path
 went through the kernels.
 
+K1 comes in two forms.  ``update_grid`` is the direct counterpart of the TPU
+kernel, on a dense grid (mass and momentum).  ``update_grid_blocks`` is the
+grid update of the substeps: it reads K2's block windows and the active
+block list, gathers each node's halo, adds B x_node and applies the update
+in one kernel, so that no dense grid is built between K2 and K1.
+
 Lanes: K1 and K2 also take L independent problems in one launch.  K1 takes
 ``mass (L, nx, ny, nz)`` and ``momentum (L, 3, nx, ny, nz)``, the lane a grid
-dimension of the kernel; K2 takes ``starts`` and ``counts`` of shape
-``(L, A)`` into one packed table of all lanes' rows (``sort_particles``
-makes it), one CTA per (lane, block).  The plain versions take the same
-shapes.
+dimension of the kernel; ``update_grid_blocks`` K2's output of shape
+``(L, A, 16, 216)`` and ``active (L, A)``; K2 takes ``starts`` and
+``counts`` of shape ``(L, A)`` into one packed table of all lanes' rows
+(``sort_particles`` makes it), one CTA per (lane, block).  The plain
+versions take the same shapes.
 
 The packed particle row keeps the JAX package's column meaning but is 40
 wide instead of 128 (no TPU lane padding): 0:16 values [m, u0 (3), B (9),
@@ -43,7 +50,7 @@ P2G_NODES = 216  # 6^3 block-window nodes
 G2P_VEL_CH = 12  # [v(3), v*node_x(3), v*node_y(3), v*node_z(3)]
 G2P_OUT = 24  # [x_new(3), v_new(3), F_new(9), C_new(9)]
 PACKED_COLS = 40
-LAUNCHES = {"update_grid": 0, "p2g_block": 0, "g2p_block": 0}
+LAUNCHES = {"update_grid": 0, "update_grid_blocks": 0, "p2g_block": 0, "g2p_block": 0}
 
 
 def reset_launch_counts() -> None:
@@ -143,6 +150,8 @@ def update_grid_cuda(mass, momentum, dt, gravity, wall_width):
         raise ValueError(f"update_grid: {L} lanes, at most {MAX_GRID_LANES} a launch")
     _check("mass", mass)
     _check("momentum", momentum, shape=lanes + (3, nx, ny, nz), device=mass.device)
+    if 3 * nx * ny * nz >= 2**31:
+        raise ValueError(f"update_grid: grid {(nx, ny, nz)} too large for 32-bit indices")
     vel = torch.empty_like(momentum)
     if mass.numel() == 0:
         return vel
@@ -165,6 +174,139 @@ def update_grid(mass, momentum, dt, gravity, wall_width, plain=False):
     if plain or mass.device.type == "cpu":
         return update_grid_reference(mass, momentum, dt, gravity, wall_width)
     return update_grid_cuda(mass, momentum, dt, gravity, wall_width)
+
+
+def empty_launch_cuda(blocks: int, threads: int, device) -> None:
+    """Launch an empty kernel of `blocks` CTAs of `threads` on `device`'s
+    current stream: a probe of what a launch costs with no work.  It counts
+    in no ``LAUNCHES`` entry."""
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.mpm_empty(int(blocks), int(threads), _stream(device))
+    _raise_on_error("empty", rc)
+
+
+# ---------------------------------------------------------------------------
+# K1 from block windows: the grid update of the substeps, from K2's output.
+# ---------------------------------------------------------------------------
+
+
+def window_node_pos(grid_size, dx, active, dtype):
+    """(..., A, 216, 3) world positions of each active block's 6^3 window
+    nodes, node l = (i*6+j)*6+k at grid index 4*block + (i, j, k)."""
+    _, ny, nz = grid_size
+    nby, nbz = ny // 4, nz // 4
+    ablock = torch.stack(
+        [active // (nbz * nby), (active // nbz) % nby, active % nbz], dim=-1
+    )
+    l_range = torch.arange(6, device=active.device)
+    ll = torch.stack(
+        torch.meshgrid(l_range, l_range, l_range, indexing="ij"), dim=-1
+    ).reshape(P2G_NODES, 3)
+    return (4 * ablock[..., None, :] + ll).to(dtype) * dx
+
+
+def _combine(T, block_axis, local_axis, nb):
+    """Halo combine along one axis: window row l of block b lands on grid
+    index 4b + l; rows 4 and 5 spill into block b+1's rows 0 and 1."""
+    core = T.movedim((block_axis, local_axis), (0, 1))
+    res = core[:, 0:4].clone()
+    res[1:, 0] += core[:-1, 4]
+    res[1:, 1] += core[:-1, 5]
+    return res.reshape((nb * 4,) + core.shape[2:]).movedim(0, block_axis)
+
+
+def grid_from_blocks_reference(out, active, grid_size, dx):
+    """The dense grid of each lane from K2's output ([L,] A, 16, 216) and
+    the active block ids ([L,] A): add B x_node to the momentum at every
+    window node, place each active block's window in its lane's grid (a
+    block table), combine the halos (x, then y, then z).  Sentinel entries
+    (id nblocks) contribute nothing.  Returns (mass ([L,] nx, ny, nz),
+    momentum ([L,] nx, ny, nz, 3))."""
+    nx, ny, nz = grid_size
+    nbx, nby, nbz = nx // 4, ny // 4, nz // 4
+    nblocks = nbx * nby * nbz
+    lanes = tuple(active.shape[:-1])
+    L = math.prod(lanes)
+    LA = L * active.shape[-1]
+    out = out.reshape(LA, P2G_NV, P2G_NODES)
+    node_pos = window_node_pos(grid_size, dx, active, out.dtype)
+    M_blk = out[:, 0, :]
+    U_blk = out[:, 1:4, :].transpose(1, 2)  # (LA, 216, 3)
+    C_blk = out[:, 4:13, :].transpose(1, 2).reshape(LA, P2G_NODES, 3, 3)
+    mom_blk = U_blk + torch.einsum(
+        "alij,alj->ali", C_blk, node_pos.reshape(LA, P2G_NODES, 3)
+    )
+    # Active ids are unique within a lane; sentinel entries (all zero) go to
+    # the extra row.
+    lane_off = (torch.arange(L, device=active.device) * nblocks).reshape(lanes + (1,))
+    dest = torch.where(active < nblocks, active + lane_off, L * nblocks)
+    T = torch.zeros((L * nblocks + 1, P2G_NODES, 4), dtype=out.dtype, device=out.device)
+    T.index_add_(
+        0, dest.reshape(LA), torch.cat([M_blk[..., None], mom_blk], dim=-1),
+    )
+    T = T[:-1].reshape(L, nbx, nby, nbz, 6, 6, 6, 4)
+    Tx = _combine(T, 1, 4, nbx)  # (L, nx, nby, nbz, 6, 6, 4)
+    Ty = _combine(Tx, 2, 4, nby)  # (L, nx, ny, nbz, 6, 4)
+    Tz = _combine(Ty, 3, 4, nbz).reshape(lanes + (nx, ny, nz, 4))
+    return Tz[..., 0], Tz[..., 1:]
+
+
+def update_grid_blocks_reference(out, active, grid_size, dx, dt, gravity, wall_width):
+    """Plain version: the dense grid of ``grid_from_blocks_reference``, then
+    ``update_grid_reference``.  Returns the grid velocity ([L,] nx, ny, nz,
+    3).  Takes the active ids in any order."""
+    mass, momentum = grid_from_blocks_reference(out, active, grid_size, dx)
+    vel = update_grid_reference(mass, momentum.movedim(-1, -4), dt, gravity, wall_width)
+    return vel.movedim(-4, -1)
+
+
+# Active ids of one lane that the kernel holds in shared memory (int32 each).
+MAX_WINDOW_BLOCKS = 49_152
+
+
+def update_grid_blocks_cuda(out, active, grid_size, dx, dt, gravity, wall_width):
+    """Launch the grid update from block windows
+    (``update_grid_blocks_kernel``).  out: ([L,] A, 16, 216) float32, K2's
+    output; active: ([L,] A) int64, each lane's ids ascending and unique but
+    for the sentinel nblocks, as ``sort_particles`` makes them.  Returns the
+    velocity ([L,] nx, ny, nz, 3), contiguous.  A lane whose ids are out of
+    ascending order gets NaN."""
+    _check("active", active, torch.int64)
+    lanes = tuple(active.shape[:-1])
+    A = active.shape[-1]
+    L = math.prod(lanes)
+    nx, ny, nz = grid_size
+    _check("out", out, shape=lanes + (A, P2G_NV, P2G_NODES), device=active.device)
+    if nx % 4 or ny % 4 or nz % 4:
+        raise ValueError(f"grid dims must be multiples of 4, got {tuple(grid_size)}")
+    if L > MAX_GRID_LANES:
+        raise ValueError(f"update_grid_blocks: {L} lanes, at most {MAX_GRID_LANES} a launch")
+    if A > MAX_WINDOW_BLOCKS:
+        raise ValueError(f"update_grid_blocks: {A} active blocks, at most {MAX_WINDOW_BLOCKS}")
+    vel = torch.empty(lanes + (nx, ny, nz, 3), dtype=torch.float32, device=out.device)
+    if vel.numel() == 0:
+        return vel
+    lib = _build.load_library()
+    gx, gy, gz = (float(g) for g in gravity)
+    with torch.cuda.device(out.device):
+        rc = lib.mpm_update_grid_blocks(
+            out.data_ptr(), active.data_ptr(), L, A, nx, ny, nz, float(dx),
+            float(dt), gx, gy, gz, int(wall_width), vel.data_ptr(),
+            _stream(out.device),
+        )
+    _raise_on_error("update_grid_blocks", rc)
+    LAUNCHES["update_grid_blocks"] += 1
+    return vel
+
+
+def update_grid_blocks(out, active, grid_size, dx, dt, gravity, wall_width, plain=False):
+    """Dispatcher: the plain version for CPU tensors or ``plain=True``, the
+    grid update from block windows for CUDA tensors."""
+    args = (out, active, grid_size, dx, dt, gravity, wall_width)
+    if plain or out.device.type == "cpu":
+        return update_grid_blocks_reference(*args)
+    return update_grid_blocks_cuda(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,8 @@ loads neither torch nor Pallas (whose Mosaic extensions stay in the process
 for the rest of the run).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -209,6 +211,18 @@ def test_g2p_block_matches_pallas_interpret(jmk, tmk):
         assert not out[a, c:].any()
 
 
+def test_update_grid_blocks_wrapper_refuses_cpu_tensors(tmk):
+    """The wrapper of K1 from block windows launches or raises: CPU tensors
+    are refused before any build is attempted."""
+    import torch
+
+    active = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmk.update_grid_blocks_cuda(torch.zeros((4, 16, 216)), active, (8, 8, 8), 0.125,
+                                    1e-4, (0, 0, -9.81), 1)
+    assert tmk.LAUNCHES["update_grid_blocks"] == 0
+
+
 def test_kernel_wrappers_refuse_cpu_tensors(tmk):
     """The CUDA wrappers launch or raise: a CPU tensor is refused before any
     build is attempted (the dispatchers never send one there)."""
@@ -222,7 +236,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(tmk):
         tmk.p2g_block_cuda(z((16, 40)), i, i, 8)
     with pytest.raises(ValueError, match="CUDA"):
         tmk.g2p_block_cuda(z((16, 40)), z((4, 216, 12)), i, i, 8, 1.0, 1e-4)
-    assert tmk.LAUNCHES == {"update_grid": 0, "p2g_block": 0, "g2p_block": 0}
+    assert tmk.LAUNCHES == {"update_grid": 0, "update_grid_blocks": 0, "p2g_block": 0,
+                            "g2p_block": 0}
 
 
 # Lanes: L problems in one call, against jax.vmap of the reference.
@@ -271,3 +286,83 @@ def test_p2g_block_lanes_match_jax_vmap(jmk, tmk, dtype):
     ref = np.asarray(ref)
     assert out.shape == (LANES, 8, 16, 216)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=TOL[dtype] * np.abs(ref).max())
+
+
+# K1 from block windows: K2's output (L, A, 16, 216) and the active ids
+# (L, A) -> the grid velocity (L, nx, ny, nz, 3).
+WIN_GRID = (16, 12, 20)  # 4 x 3 x 5 blocks
+WIN_DX = 1.0 / 16
+
+
+def _random_windows(rng, lanes, dtype, live=18, A=24):
+    """K2-like outputs: masses in [0.1, 1] at every window node (so no
+    velocity divides by a tiny mass), u0 and B of size 0.1, pad channels 0;
+    each lane its own `live` ascending block ids, then sentinels."""
+    nblocks = math.prod(n // 4 for n in WIN_GRID)
+    out = np.zeros((lanes, A, 16, 216))
+    out[:, :, 0] = rng.uniform(0.1, 1.0, (lanes, A, 216))
+    out[:, :, 1:13] = 0.1 * rng.standard_normal((lanes, A, 12, 216))
+    active = np.full((lanes, A), nblocks, np.int64)
+    for lane in range(lanes):
+        active[lane, :live] = np.sort(rng.choice(nblocks, live, replace=False))
+    out[active == nblocks] = 0.0  # as K2 leaves the sentinel entries
+    return out.astype(dtype), active
+
+
+def _dense_grid_np(out, active):
+    """Independent construction of one lane's grid: each active block's
+    window added at grid index 4 block + l (rows past the grid dropped),
+    momentum u0 + B x_node."""
+    nx, ny, nz = WIN_GRID
+    nby, nbz = ny // 4, nz // 4
+    mass = np.zeros((nx + 2, ny + 2, nz + 2))
+    mom = np.zeros((nx + 2, ny + 2, nz + 2, 3))
+    l = np.arange(216)
+    local = np.stack([l // 36, (l // 6) % 6, l % 6], axis=-1)
+    for a, bid in enumerate(active):
+        if bid >= (nx // 4) * nby * nbz:
+            continue
+        node = 4 * np.array([bid // (nby * nbz), (bid // nbz) % nby, bid % nbz]) + local
+        B = out[a, 4:13].T.reshape(216, 3, 3).astype(np.float64)
+        p = out[a, 1:4].T + np.einsum("lij,lj->li", B, node * WIN_DX)
+        np.add.at(mass, tuple(node.T), out[a, 0])
+        np.add.at(mom, tuple(node.T), p)
+    return mass[:nx, :ny, :nz], np.moveaxis(mom[:nx, :ny, :nz], -1, 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_update_grid_blocks_matches_jax(jmk, tmk, dtype):
+    """The plain version against the JAX package's K1 oracle on grids built
+    independently from the same windows: one state, and lanes against
+    jax.vmap, lane by lane equal to the unbatched call."""
+    import jax
+
+    rng = np.random.default_rng(8)
+    out, active = _random_windows(rng, LANES, dtype)
+    grids = [_dense_grid_np(out[lane], active[lane]) for lane in range(LANES)]
+    mass = np.stack([g[0] for g in grids]).astype(dtype)
+    mom = np.stack([g[1] for g in grids]).astype(dtype)
+    args = (1e-4, (0.5, -1.0, -9.81), 2)
+    ref = jax.vmap(lambda m, p: jmk.update_grid_reference(m, p, *args))(
+        jnp.asarray(mass), jnp.asarray(mom))
+    ref = np.moveaxis(np.asarray(ref), 1, -1)
+    got = tmk.update_grid_blocks(_t(out), _t(active), WIN_GRID, WIN_DX, *args)
+    assert got.shape == (LANES,) + WIN_GRID + (3,)
+    assert got.numpy().dtype == dtype
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL[dtype] * np.abs(ref).max())
+    for lane in range(LANES):
+        one = tmk.update_grid_blocks(_t(out[lane]), _t(active[lane]), WIN_GRID, WIN_DX, *args)
+        np.testing.assert_array_equal(one.numpy(), got[lane].numpy())
+
+
+def test_update_grid_blocks_plain_takes_any_order(tmk):
+    """The plain version adds the blocks whatever the order of the active
+    ids (the kernel requires them ascending): the entries permuted together
+    with their windows give the same velocity."""
+    rng = np.random.default_rng(9)
+    out, active = _random_windows(rng, 1, np.float64)
+    perm = rng.permutation(active.shape[1])
+    args = (WIN_GRID, WIN_DX, 1e-4, (0.0, 0.0, -9.81), 3)
+    np.testing.assert_array_equal(
+        tmk.update_grid_blocks(_t(out[:, perm]), _t(active[:, perm]), *args).numpy(),
+        tmk.update_grid_blocks(_t(out), _t(active), *args).numpy())

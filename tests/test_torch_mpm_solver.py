@@ -303,6 +303,32 @@ def test_convert_round_trip(convert, scene):
 # ---------------------------------------------------------------------------
 
 LANE_CAPACITIES = {"A64": 64, "A8": 8}  # A = 8 drops blocks, differently per lane
+P_CUT = 100  # a block_capacity that drops the last particles of the fullest blocks
+
+
+def _jax_faces_state(jconfig):
+    """Particles in the corner cells of the grid: within wall_width of the
+    lower faces (base cell -1, clipped to 0) and at the upper faces (base
+    cell n - 2, clipped to n - 3, weights from the unclipped base)."""
+    lo = J.make_particle_block(jconfig, (0.0,) * 3, (0.11,) * 3, dtype=np.float64)
+    hi = J.make_particle_block(jconfig, (0.89,) * 3, (1.0,) * 3, dtype=np.float64,
+                               jitter_seed=1)
+    s = jax.tree_util.tree_map(lambda a, b: jnp.concatenate([a, b]) if a.ndim else a, lo, hi)
+    rng = np.random.default_rng(5)
+    n = s.x.shape[0]
+    return s.replace(
+        v=jnp.asarray(0.1 * rng.standard_normal((n, 3))),
+        F=jnp.asarray(np.eye(3) + 0.01 * rng.standard_normal((n, 3, 3))),
+    )
+
+
+def _kept_by_the_port(T, config, state):
+    """(..., n) bool: the particles that the port's block sort keeps."""
+    sort = T.sort_particles(config, state)
+    kept = np.zeros(sort.perm.shape[0], bool)
+    for start, count in zip(sort.starts.reshape(-1).tolist(), sort.counts.reshape(-1).tolist()):
+        kept[sort.perm[start:start + count].numpy()] = True
+    return kept.reshape(state.mass.shape)
 
 
 def _jax_lane_states(jconfig):
@@ -320,26 +346,47 @@ def lanes(convert):
     lane tests from one jitted program."""
     from test_torch_multibody import run_jitted
 
+    from drake_tpu_torch.mpm import solver as T
+
     jconfig = _jax_config()
     jstates = _jax_lane_states(jconfig)
+    jfaces = _jax_faces_state(jconfig)
     configs = {k: dataclasses.replace(jconfig, max_active_blocks=a)
                for k, a in LANE_CAPACITIES.items()}
+    configs["P100"] = dataclasses.replace(jconfig, block_capacity=P_CUT)
+    tconfigs = {k: convert.config_from_reference(dataclasses.asdict(c))
+                for k, c in configs.items()}
+    tstates = convert.state_from_numpy(_to_numpy(jstates), device="cpu")
+    tfaces = convert.state_from_numpy(_to_numpy(jfaces), device="cpu")
+    # The JAX sort keeps other particles of an overflowing block than the
+    # port's sort by cell, so the reference of the pmax cut is the JAX grid
+    # of the particles the port keeps: the others get no mass and volume.
+    kept = jnp.asarray(_kept_by_the_port(T, tconfigs["P100"], tstates))
+    jkept = jstates.replace(mass=jnp.where(kept, jstates.mass, 0.0),
+                            volume=jnp.where(kept, jstates.volume, 0.0))
 
     def one(s):
         grid = J.particle_to_grid_scatter(jconfig, s)
         vel = J.update_grid(jconfig, grid)
         out = {"scatter": grid, "vel": vel, "g2p": J.grid_to_particle(jconfig, s, vel),
                "substep": J.mpm_substep(jconfig, s)}
-        for k, cfg in configs.items():
-            out[f"blocked_{k}"] = J.particle_to_grid_blocked(cfg, s)
+        for k in LANE_CAPACITIES:
+            out[f"blocked_{k}"] = J.particle_to_grid_blocked(configs[k], s)
+            out[f"vel_blocked_{k}"] = J.update_grid(jconfig, out[f"blocked_{k}"])
         return out
 
-    ref = run_jitted(jax.vmap(one), jstates)
-    tconfigs = {k: convert.config_from_reference(dataclasses.asdict(c))
-                for k, c in configs.items()}
-    tstates = convert.state_from_numpy(_to_numpy(jstates), device="cpu")
+    def blocked_velocity(s):
+        return J.update_grid(jconfig, J.particle_to_grid_blocked(jconfig, s))
+
+    def program(states, faces, kept_states):
+        out = jax.vmap(one)(states)
+        out["vel_blocked_P100"] = jax.vmap(blocked_velocity)(kept_states)
+        out["vel_blocked_faces"] = blocked_velocity(faces)
+        return out
+
+    ref = run_jitted(program, jstates, jfaces, jkept)
     return {"ref": ref, "tconfig": tconfigs["A64"], "tconfigs": tconfigs,
-            "tstates": tstates, "jstates": jstates}
+            "tstates": tstates, "jstates": jstates, "tfaces": tfaces}
 
 
 def _assert_grid_close(got, ref):
@@ -425,3 +472,67 @@ def test_sort_particles_over_lanes_keeps_each_lanes_block_table(T, lanes):
         rows = slice(lane * n, (lane + 1) * n)
         np.testing.assert_array_equal(both.packed[rows].numpy(), one.packed.numpy())
         np.testing.assert_array_equal(both.perm[rows].numpy(), one.perm.numpy() + lane * n)
+
+
+# ---------------------------------------------------------------------------
+# K1 from block windows (mpm_kernels.update_grid_blocks): its plain version
+# against the JAX package's update_grid(particle_to_grid_blocked(...)).
+# ---------------------------------------------------------------------------
+
+
+def _blocked_velocity(T, config, state):
+    """The grid velocity through K2 and K1 from K2's block windows, as the
+    card's substeps take it (their plain versions here)."""
+    from drake_tpu_torch.ops import mpm_kernels as mk
+
+    sort = T.sort_particles(config, state)
+    out = mk.p2g_block(sort.packed, sort.starts, sort.counts, config.block_capacity)
+    return mk.update_grid_blocks(out, sort.active, config.grid_size, config.dx, config.dt,
+                                 config.gravity, config.wall_width)
+
+
+@pytest.mark.parametrize("case", ["single", "lanes", "lanes_A8", "lanes_P100", "faces"])
+def test_update_grid_blocks_matches_jax(T, lanes, case):
+    """Within 1e-9 of max |v| in float64: one state (lane 0 of the vmapped
+    reference), two lanes against jax.vmap, blocks cut by max_active_blocks
+    and by block_capacity, and particles at the clipped faces and within
+    the walls."""
+    from drake_tpu_torch.utils.struct import tree_map
+
+    ref, s = lanes["ref"], lanes["tstates"]
+    key = {"lanes_A8": "A8", "lanes_P100": "P100"}.get(case, "A64")
+    cfg = lanes["tconfigs"][key]
+    want = np.asarray(ref[f"vel_blocked_{key}"])
+    if case == "single":
+        s, want = tree_map(lambda t: t[0], s), want[0]
+    elif case == "faces":
+        s, want = lanes["tfaces"], np.asarray(ref["vel_blocked_faces"])
+        assert int(T.sort_particles(cfg, s).dropped) == 0
+        base = np.floor(s.x.numpy() / cfg.dx - 0.5)
+        assert (base < 0).any() and (base > cfg.grid_size[0] - 3).any()
+        wall = np.asarray(cfg.grid_size) - cfg.wall_width
+        assert np.abs(want[: cfg.wall_width]).max() == 0 == np.abs(want[wall[0]:]).max()
+    elif case != "lanes":
+        drops = T.sort_particles(cfg, s).dropped.numpy()
+        assert (drops > 0).all()
+    got = _blocked_velocity(T, cfg, s)
+    assert got.shape == want.shape
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-9 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", ["single", "lanes"])
+def test_grid_velocity_on_the_cpu_is_update_grid_of_particle_to_grid(T, lanes, case):
+    """On the CPU the substeps' P2G and grid update are the scatter and the
+    plain dense update, bit for bit, and the dropped count is the P2G's."""
+    import torch
+
+    from drake_tpu_torch.utils.struct import tree_map
+
+    cfg, s = lanes["tconfigs"]["A8"], lanes["tstates"]
+    if case == "single":
+        s = tree_map(lambda t: t[0], s)
+    vel, dropped = T.grid_velocity(cfg, s)
+    grid = T.particle_to_grid(cfg, s)
+    assert torch.equal(vel, T.update_grid(cfg, grid))
+    assert torch.equal(dropped, grid.dropped)

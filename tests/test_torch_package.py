@@ -77,6 +77,7 @@ PORT_MODULES = (
     "drake_tpu_torch.benchmarks.paddle_blob",
     "drake_tpu_torch.benchmarks.bench_coupled_world",
     "drake_tpu_torch.benchmarks.bench_coupled_mpc",
+    "drake_tpu_torch.benchmarks.bench_update_grid",
     "drake_tpu_torch.utils.device",
     "drake_tpu_torch.utils.linalg",
     "drake_tpu_torch.utils.struct",
@@ -138,7 +139,8 @@ def test_cpu_path_launches_no_kernel():
     state = T.mpm_substep_blocked(config, state)
     assert int(state.dropped) == 0
     assert bool(torch.isfinite(state.x).all())
-    assert tmk.LAUNCHES == {"update_grid": 0, "p2g_block": 0, "g2p_block": 0}
+    assert tmk.LAUNCHES == {"update_grid": 0, "update_grid_blocks": 0, "p2g_block": 0,
+                            "g2p_block": 0}
     assert _build.load_library.cache_info().currsize == 0
 
 
@@ -156,7 +158,8 @@ def test_library_name_follows_source_hash():
 
 
 @pytest.mark.parametrize(
-    "name", ["mpm_update_grid", "mpm_p2g_block", "mpm_g2p_block"]
+    "name", ["mpm_update_grid", "mpm_update_grid_blocks", "mpm_empty", "mpm_p2g_block",
+             "mpm_g2p_block"]
 )
 def test_ctypes_signature_matches_the_c_entry_point(name):
     """The argtypes a wrapper declares have the arity and the pointer, int
