@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of drake_tpu_torch, the PyTorch + CUDA port: the MPM
 substep (slice 1), the batched iiwa contact-implicit MPC of bench.py (slice
-2), and the coupled MPM + rigid world with its MPPI controller (slice 3,
-BASELINE config 5).  Run from the root of a checkout, on a machine with one
+2), the coupled MPM + rigid world with its MPPI controller (slice 3,
+BASELINE config 5), and that world with the dense implicit grid contact.
+Run from the root of a checkout, on a machine with one
 NVIDIA GPU:
 
     python3 chip_smoke.py
@@ -81,6 +82,28 @@ pushing an MPM blob; K1 and K2 batched over lanes, K3 not on this path):
     share, kernels, the ranges ``coupling.substep``, ``coupling.contact`` and
     ``coupled.sap_step``, the K1 and K2 kernels, and the cuBLAS gemv kernels
     (none of them the grid's B x_node product, which K1 computes).
+
+Then the dense implicit grid contact (``mpm/grid_contact.py``, the branch
+``contact_model="implicit", tiled=False`` of ``CoupledWorld.step``) on the
+same world, with the JAX bench's --implicit solve parameters:
+
+13. a. parity: one dense implicit coupled step of 4 lanes, float32 on the
+       card against float64 on the CPU, within IMPLICIT_PARITY, and each
+       solve's Newton iteration count;
+    b. K = 64 and K = 32 rollouts of 10 coupled steps in one call
+       (``bench_coupled_world.rollout``, the paddle's face 5 mm inside the
+       blob, the bench's controls + 10 N) after a warm-up rollout: substeps/s,
+       Newton iterations, solves at the cap, final residuals, peak memory, the
+       kernel launches (K2 and K1 from block windows with the node mass, one
+       each a substep; no dense K1), with the gates: finite, dropped == 0,
+       every lane's impulse on the paddle nonzero, every lane in contact
+       (more than one Newton iteration in some substep), every solve below
+       the cap at its tolerance;
+    c. the K = 64 rollout with ``xla_only=True`` against the kernels, within
+       1e-4; K1 from block windows with the mass against its plain version
+       and timed beside the velocity-only launch; with ``--profile``, the
+       device share and host ms of ``grid_contact.newton`` and
+       ``grid_contact.line_search`` per coupled substep.
 
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -192,6 +215,41 @@ COUPLED_PARITY = {
 COUPLED_MAX_DIFF_PATHS = 1e-4
 COUPLED_LAYERS = ("coupling.substep", "coupling.contact", "coupled.sap_step")
 COUPLED_TOP_LAYERS = ("coupling.substep", "coupled.sap_step")
+
+# The dense implicit world (phase 13): config 5's paddle and blob with the
+# dense implicit grid contact (CoupledWorld contact_model="implicit",
+# tiled=False) and the solve parameters of the JAX bench's --implicit
+# (benchmarks/bench_coupled_world.py:106-121): k 5e4, d 100, mu 0.3, at most
+# 20 Newton iterations, 12 line-search points, 2 levels.
+IMPLICIT_LANES = (64, 32)  # the JAX bench's K = 64, and the K = 32 cell
+# The paddle starts with its face 5 mm inside the blob's box (at the bench's
+# 0.31 m it is 3 cm away, which the bench's +-5 N do not close in 0.1 s) and
+# is pushed by the bench's controls 5 sin(k) plus a constant 10 N.
+IMPLICIT_PADDLE_X0 = 0.345
+IMPLICIT_PUSH = 10.0
+IMPLICIT_PARITY_LANES = 4
+# Phase 13a bounds, card float32 against CPU float64 on one coupled step of
+# 4 lanes (paddles at 0.345 + 1 mm a lane, at rest, 10, 5, 15, 12 N), as a
+# share of the float64 answer's scale (as COUPLED_PARITY; the solves' final
+# residuals (substeps, lanes) by their largest).  The same comparison between
+# float32 and float64 on a CPU gave IMPLICIT_PARITY_CPU; the bounds leave two
+# orders of magnitude above it.  Iteration counts: equal on the CPU; a solve
+# that ends within float32 rounding of its tolerance may take one more or one
+# fewer iteration on the card.
+IMPLICIT_PARITY_CPU = {
+    "x": 1.8e-7, "v": 1.8e-5, "F": 6.6e-7, "C": 8.5e-6, "rigid": 5.0e-7,
+    "impulses": 4.3e-5, "residual": 5.7e-5,
+}
+IMPLICIT_PARITY = {name: 100 * value for name, value in IMPLICIT_PARITY_CPU.items()}
+IMPLICIT_PARITY_ITERATIONS = 1
+# Phase 13c: kernels against plain versions after the 64-lane rollout, as
+# phase 11.  The blocked P2G's plain version against the scatter, both
+# float32 on a CPU over 8 of these lanes, differed by 1.8e-7 (x) and 2.5e-6
+# (v).
+IMPLICIT_MAX_DIFF_PATHS = 1e-4
+IMPLICIT_LAYERS = ("grid_contact.substep", "grid_contact.newton", "grid_contact.line_search",
+                   "coupled.sap_step")
+IMPLICIT_TOP_LAYERS = ("grid_contact.substep", "coupled.sap_step")
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -320,8 +378,10 @@ def bound_k2(ref):
 
 
 # K1 from block windows against its plain version: the same windows, summed
-# in the same order; only the rounding of B x_node (three products, fused
-# multiply-adds on the card) and the order of gravity's multiply-add differ.
+# in the same order; only the rounding of B (x_node - o) (three products,
+# fused multiply-adds on the card) and the order of gravity's multiply-add
+# differ.  With the mass (phase 13), the mass and the velocity each within
+# 1e-5 of their largest magnitude.
 def bound_k1_blocks(ref):
     return [("v", slice(None), 1e-5 * float(ref.abs().max()))]
 
@@ -334,16 +394,17 @@ def k1_needed_bytes(mass):
     return 4 * (4 * mass.numel() + 3 * int((mass > 0).sum()))
 
 
-def k1_blocks_work(mk, active, grid_size):
+def k1_blocks_work(mk, active, grid_size, with_mass=False):
     """(bytes, operations) K1 from block windows needs: the 13 live channels
     of every active block that is no sentinel and the active ids read once,
-    12 B of velocity written per node; 22 operations per window node of a
-    live block (u0 + B x_node and the four sums) and 9 per node (the
-    update)."""
+    12 B of velocity written per node, and with the mass 4 B more; 22
+    operations per window node of a live block (u0 + B (x_node - o) and the
+    four sums) and 9 per node (the update; the mass is one of the sums)."""
     nx, ny, nz = grid_size
     live = int((active < (nx // 4) * (ny // 4) * (nz // 4)).sum())
     nodes = active[..., 0].numel() * nx * ny * nz
-    return (4 * live * 13 * mk.P2G_NODES + 8 * active.numel() + 12 * nodes,
+    out_bytes = (16 if with_mass else 12) * nodes
+    return (4 * live * 13 * mk.P2G_NODES + 8 * active.numel() + out_bytes,
             22 * live * mk.P2G_NODES + 9 * nodes)
 
 
@@ -689,6 +750,7 @@ def profile_layers(torch, run, n, layers, top_layers, tag, unit, card, named=())
     timeline_ms = sum(d for _, d in timeline) / 1e3
     outside = sum(d for t, d in timeline
                   if not any(inside(layer, t) for layer in top_layers)) / 1e3
+    result = {"device_ms": device_ms / n, "timeline_ms": timeline_ms / n, "layers": {}}
     for layer in layers:
         check(spans[layer], f"no device annotation of {layer} in the trace")
         dev = sum(d for t, d in timeline if inside(layer, t)) / 1e3
@@ -697,6 +759,7 @@ def profile_layers(torch, run, n, layers, top_layers, tag, unit, card, named=())
         calls = sum(a.count for a in rows)
         print(f"[profile {tag}] {layer}: device kernels {dev / n!r} ms/{unit}, host "
               f"{host / n!r} ms/{unit} (both inclusive), {calls / n!r} calls/{unit} [{card}]")
+        result["layers"][layer] = (dev / n, host / n)
     print(f"[profile {tag}] outside {'/'.join(top_layers)}: device kernels "
           f"{outside / n!r} ms/{unit}; all kernels on the timeline {timeline_ms / n!r} "
           f"ms/{unit} [{card}]")
@@ -709,6 +772,7 @@ def profile_layers(torch, run, n, layers, top_layers, tag, unit, card, named=())
     for a in top:
         print(f"[profile {tag}] kernel {a.key[:90]}: {_device_us(a) / 1e3 / n!r} ms/{unit}, "
               f"{a.count / n!r} launches/{unit} [{card}]")
+    return result
 
 
 def mpc_profile(torch, mpc, res, info, card):
@@ -998,6 +1062,224 @@ def coupled_profile(torch, bench_mpc, mppi, tree_map, res, dev, card):
         f"config5 MPC step B={CONFIG5_SCENARIOS} M={CONFIG5_SAMPLES}", "MPC step", card, named)
 
 
+def implicit_world(paddle_blob, gc, device, dtype=None, xla_only=False):
+    """(paddle_blob.PaddleBlob, world): config 5's world with the dense
+    implicit grid contact and the JAX bench's --implicit solve parameters;
+    ``xla_only`` takes the kernels' plain versions."""
+    import torch
+
+    w = paddle_blob.build(device=device, dtype=dtype or torch.float32, xla_only=xla_only)
+    world = dataclasses.replace(
+        w.world, contact_model="implicit", tiled=False,
+        grid_contact_params=gc.GridContactParams(
+            stiffness=5e4, damping=100.0, friction=0.3, max_iterations=20,
+            line_search_points=12, line_search_levels=2))
+    return w, world
+
+
+def implicit_parity_values(torch, paddle_blob, gc, device, dtype):
+    """Phase 13a's quantities on `device` in `dtype`: IMPLICIT_PARITY_LANES
+    lanes (paddles at 0.345 m + 1 mm a lane, at rest; 10, 5, 15, 12 N)
+    through one dense implicit coupled step of 10 substeps.  Returns (the
+    quantities in float64 on the CPU, each solve's Newton iterations
+    (substeps, lanes))."""
+    w, world = implicit_world(paddle_blob, gc, device, dtype)
+    L = IMPLICIT_PARITY_LANES
+    kw = dict(dtype=dtype, device=device)
+    s = paddle_blob.lanes(w.state0, L)
+    q = IMPLICIT_PADDLE_X0 + 0.001 * torch.arange(L, **kw)
+    s = s._replace(rigid=torch.stack([q, torch.zeros_like(q)], dim=-1))
+    tau = torch.tensor([[10.0], [5.0], [15.0], [12.0]], **kw)
+    with gc.solve_log() as log:
+        nxt = world.step(w.params, s, tau)
+    out = {"x": nxt.particles.x, "v": nxt.particles.v, "F": nxt.particles.F,
+           "C": nxt.particles.C, "rigid": nxt.rigid,
+           "impulses": sum(sol.impulses for sol in log),
+           "residual": torch.stack([sol.residual for sol in log])}
+    its = torch.stack([sol.iterations for sol in log]).cpu()
+    return {k: v.detach().double().cpu() for k, v in out.items()}, its
+
+
+def implicit_parity(torch, paddle_blob, gc, dev, card):
+    """Phase 13a: card float32 against CPU float64, within IMPLICIT_PARITY,
+    iteration counts within IMPLICIT_PARITY_ITERATIONS."""
+    ref, its_ref = implicit_parity_values(torch, paddle_blob, gc, torch.device("cpu"),
+                                          torch.float64)
+    got, its = implicit_parity_values(torch, paddle_blob, gc, dev, torch.float32)
+    for name, (rel, scale) in coupled_parity_errors(ref, got).items():
+        bound = IMPLICIT_PARITY[name]
+        ok = rel <= bound
+        print(f"[implicit parity lanes={IMPLICIT_PARITY_LANES}] {name} {tuple(ref[name].shape)}: "
+              f"max|f32 card - f64 cpu| / scale = {rel:.3e} (<= {bound:.1e}; scale "
+              f"{scale:.3e}; float32 on a CPU: {IMPLICIT_PARITY_CPU[name]:.1e}) "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        check(ok, f"implicit parity: {name} off by {rel:.3e} of its scale (bound {bound:.1e})")
+    d = int((its - its_ref).abs().max())
+    ok = d <= IMPLICIT_PARITY_ITERATIONS
+    print(f"[implicit parity lanes={IMPLICIT_PARITY_LANES}] Newton iterations a solve, lanes x "
+          f"substeps: card {its.T.tolist()}, cpu float64 {its_ref.T.tolist()}, max |difference| "
+          f"{d} (<= {IMPLICIT_PARITY_ITERATIONS}) {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"implicit parity: iteration counts {d} apart")
+    check(bool((its_ref > 1).any(dim=0).all()), "implicit parity: a lane never met the blob")
+
+
+def implicit_rollout(torch, mk, gc, paddle_blob, bench_world, lanes, dev, card,
+                     xla_only=False):
+    """Phase 13b (13c with ``xla_only``): `lanes` rollouts of COUPLED_HORIZON
+    dense implicit coupled steps in one call (bench_coupled_world.rollout),
+    timed after one warm-up rollout as phase 11 times its; prints the pace,
+    the Newton iterations, peak memory and the kernels, and checks the
+    gates.  Returns what phase 13 reports."""
+    w, world = implicit_world(paddle_blob, gc, dev, xla_only=xla_only)
+    states = paddle_blob.lanes(w.state0, lanes)
+    rigid = states.rigid.clone()
+    rigid[:, 0] = IMPLICIT_PADDLE_X0
+    states = states._replace(rigid=rigid)
+    us = bench_world.controls(lanes, COUPLED_HORIZON, dev) + IMPLICIT_PUSH
+    bench_world.rollout(world, w.params, states, us)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    with gc.solve_log() as log:
+        out, dropped = bench_world.rollout(world, w.params, states, us * 1.0001)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches, with_mass = dict(mk.LAUNCHES), dict(mk.LAUNCHES_WITH_MASS)
+    peak = torch.cuda.max_memory_allocated()
+    gp = world.grid_contact_params
+    substeps = COUPLED_HORIZON * world.substeps_per_step
+    its = torch.stack([sol.iterations for sol in log]).cpu()  # (substeps, lanes)
+    res = torch.stack([sol.residual for sol in log]).double().cpu()
+    impulse = sum(sol.impulses for sol in log)[:, 0].double().cpu()  # (lanes, 6) on the paddle
+    capped = its >= gp.max_iterations
+    label = "plain" if xla_only else "kernel"
+    tag = f"implicit world {label} K={lanes}"
+    per_lane = its.double().mean(dim=0)
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        out.rigid, out.particles.x, out.particles.v, out.particles.F, out.particles.C))
+    res_conv = float(res[~capped].max()) if bool((~capped).any()) else 0.0
+    print(f"[{tag}] horizon {COUPLED_HORIZON} x {world.substeps_per_step} substeps, "
+          f"{out.particles.x.shape[1]} particles a lane, float32 TF32 off: "
+          f"{lanes * substeps / wall!r} substeps/s (wall {wall!r} s, CUDA events "
+          f"{start.elapsed_time(end) / 1e3!r} s, {wall / substeps * 1e3!r} ms a coupled "
+          f"substep of all lanes) [{card}]")
+    print(f"[{tag}] Newton iterations a solve: median {float(its.double().median())!r}, max "
+          f"{int(its.max())}; mean a substep per lane: median {float(per_lane.median())!r}, "
+          f"max {float(per_lane.max())!r}; {int(capped.sum())} of {its.numel()} lane-substeps "
+          f"at the cap of {gp.max_iterations}; largest final residual {float(res.max())!r} "
+          f"(of the solves below the cap {res_conv!r}, tolerance {gp.rel_tolerance}) [{card}]")
+    print(f"[{tag}] dropped max {int(dropped.max())}, finite {finite}, peak memory {peak} B "
+          f"({peak / 2**30:.3f} GiB), launches {json.dumps(launches)} (with the mass "
+          f"{with_mass['update_grid_blocks']}), a substep {launches['p2g_block'] / substeps!r} "
+          f"K2 and {launches['update_grid_blocks'] / substeps!r} K1 from block windows "
+          f"[{card}]")
+    n = 0 if xla_only else substeps
+    want = {"update_grid": 0, "update_grid_blocks": n, "p2g_block": n, "g2p_block": 0}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    check(with_mass["update_grid_blocks"] == n, f"{tag}: {with_mass} launches with the mass")
+    check(finite, f"{tag}: non-finite state")
+    check(int(dropped.max()) == 0, f"{tag}: dropped {int(dropped.max())}")
+    check(bool((impulse.abs().amax(dim=-1) > 0).all()), f"{tag}: a lane put no impulse on the paddle")
+    check(bool((its > 1).any(dim=0).all()), f"{tag}: a lane took one Newton iteration in every substep")
+    check(res_conv <= gp.rel_tolerance, f"{tag}: a solve below the cap ended at {res_conv:.3e}")
+    return {"world": world, "params": w.params, "final": out, "controls": us,
+            "launches": launches, "substeps_per_s": lanes * substeps / wall,
+            "device_s": start.elapsed_time(end) / 1e3, "peak_memory_bytes": peak,
+            "iterations_median": float(its.double().median()), "capped": int(capped.sum())}
+
+
+def implicit_k1_mass(torch, mpm, mk, config, state, flush, card):
+    """K1 from block windows with the mass, on the 64-lane rollout's final
+    state: held against its plain version (mass and velocity each within
+    1e-5 of their largest magnitude) and timed, warm and cold with its
+    bound, beside the velocity-only launch on the same input."""
+    sort = mpm.sort_particles(config, state)
+    win = mk.p2g_block_cuda(sort.packed, sort.starts, sort.counts, config.block_capacity)
+    args = (win, sort.active, config.grid_size, config.dx, config.dt, config.gravity,
+            config.wall_width)
+    vel, mass = mk.update_grid_blocks_cuda(*args, with_mass=True)
+    vel_r, mass_r = mk.update_grid_blocks_reference(*args, with_mass=True)
+    torch.cuda.synchronize()
+    tag = f"implicit K1 mass L={state.x.shape[0]} A={config.max_active_blocks}"
+    err = {}
+    for name, got, ref in (("mass", mass, mass_r), ("v", vel, vel_r)):
+        check(bool(torch.isfinite(got).all()), f"{tag}: non-finite {name}")
+        e = float((got - ref).abs().max())
+        bound = 1e-5 * float(ref.abs().max())
+        err[name] = e
+        print(f"[parity {tag}] update_grid_blocks with the mass: {name} max|kernel - plain| "
+              f"= {e:.3e} (<= {bound:.3e}) {'ok' if e <= bound else 'FAIL'} [{card}]")
+        check(e <= bound, f"{tag}: {name} disagrees with the plain version")
+    check(torch.equal(vel, mk.update_grid_blocks_cuda(*args)),
+          f"{tag}: the velocity differs with and without the mass")
+    timed = {}
+    for label, with_m in (("with the mass", True), ("velocity only", False)):
+        nbytes, flops = k1_blocks_work(mk, sort.active, config.grid_size, with_mass=with_m)
+        timed[label], line = time_kernel(
+            torch, lambda: mk.update_grid_blocks_cuda(*args, with_mass=with_m),
+            lambda: mk.update_grid_blocks_reference(*args, with_mass=with_m), flush, nbytes,
+            flops)
+        print(f"[time {tag}] update_grid_blocks {label}: {line} [{card}]")
+    out = dict(timed["with the mass"])
+    out.update(max_abs_err=max(err.values()), velocity_only_ms=timed["velocity only"]["ms"],
+               velocity_only_cold_ms=timed["velocity only"]["cold_ms"],
+               velocity_only_bound_ms=timed["velocity only"]["bound_ms"])
+    return out
+
+
+def implicit_phase(torch, mpm, mk, gc, paddle_blob, bench_world, dev, card, profile):
+    """Phase 13: the dense implicit world on the card (13a parity, 13b the
+    rollouts at IMPLICIT_LANES, 13c kernel against plain at the first, K1
+    with the mass); returns (the 64-lane run's launches, K1 with mass's
+    results)."""
+    implicit_parity(torch, paddle_blob, gc, dev, card)
+    runs = {lanes: implicit_rollout(torch, mk, gc, paddle_blob, bench_world, lanes, dev, card)
+            for lanes in IMPLICIT_LANES}
+    first = runs[IMPLICIT_LANES[0]]
+    plain = implicit_rollout(torch, mk, gc, paddle_blob, bench_world, IMPLICIT_LANES[0], dev,
+                             card, xla_only=True)
+    k, p = first["final"], plain["final"]
+    dx = float((k.particles.x - p.particles.x).abs().max())
+    dv = float((k.particles.v - p.particles.v).abs().max())
+    dr = float((k.rigid - p.rigid).abs().max())
+    ok = max(dx, dv, dr) <= IMPLICIT_MAX_DIFF_PATHS
+    print(f"[implicit world] kernel vs plain after the K={IMPLICIT_LANES[0]} rollout: max|dx| "
+          f"{dx:.3e}, max|dv| {dv:.3e}, max|d rigid| {dr:.3e} (<= "
+          f"{IMPLICIT_MAX_DIFF_PATHS:.0e}) {'ok' if ok else 'FAIL'}; kernel/plain substeps/s "
+          f"{first['substeps_per_s'] / plain['substeps_per_s']!r}")
+    check(ok, "implicit world: kernel and plain paths disagree")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    k1_mass = implicit_k1_mass(torch, mpm, mk, first["world"].mpm_config, k.particles, flush,
+                               card)
+    del flush
+    if profile:
+        world, u = first["world"], first["controls"][:, -1]
+        logs = []
+
+        def run():
+            with gc.solve_log() as log:
+                world.step(first["params"], k, u)
+            logs.append(log)
+
+        prof = profile_layers(torch, run, world.substeps_per_step, IMPLICIT_LAYERS,
+                              IMPLICIT_TOP_LAYERS, f"implicit coupled step L={IMPLICIT_LANES[0]}",
+                              "coupled substep", card,
+                              ("update_grid_blocks_kernel", "p2g_block_kernel", "index",
+                               "gather", "scatter"))
+        its = torch.stack([sol.iterations for sol in logs[-1]]).double()
+        for layer in ("grid_contact.newton", "grid_contact.line_search"):
+            dev_ms, host_ms = prof["layers"][layer]
+            print(f"[profile implicit] {layer}: {dev_ms / prof['device_ms']:.3f} of the device "
+                  f"time, {dev_ms!r} device ms and {host_ms!r} host ms a coupled substep; "
+                  f"Newton iterations a substep (max over lanes): "
+                  f"{float(its.max(dim=1).values.mean())!r} [{card}]")
+    return first["launches"], runs[IMPLICIT_LANES[1]]["launches"], k1_mass
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -1009,7 +1291,7 @@ def main(argv) -> int:
     from drake_tpu_torch import bench
     from drake_tpu_torch.benchmarks import bench_coupled_mpc, bench_coupled_world, paddle_blob
     from drake_tpu_torch.control import mpc, mppi
-    from drake_tpu_torch.mpm import coupling
+    from drake_tpu_torch.mpm import coupling, grid_contact
     from drake_tpu_torch.mpm import solver as mpm
     from drake_tpu_torch.ops import _build
     from drake_tpu_torch.ops import mpm_kernels as mk
@@ -1198,6 +1480,15 @@ def main(argv) -> int:
         torch, mk, bench_coupled_mpc, dev, card)
     if "--profile" in argv:
         coupled_profile(torch, bench_coupled_mpc, mppi, tree_map, res5, dev, card)
+    del res5
+    torch.cuda.empty_cache()
+
+    # ---- 13. the dense implicit world --------------------------------------
+    (by_path["dense implicit world K=64 (phase 13)"],
+     by_path["dense implicit world K=32 (phase 13)"], k1_mass) = implicit_phase(
+        torch, mpm, mk, grid_contact, paddle_blob, bench_coupled_world, dev, card,
+        "--profile" in argv)
+    errs["update_grid_blocks"] = max(errs["update_grid_blocks"], k1_mass["max_abs_err"])
     for name in ("update_grid_blocks", "p2g_block"):
         for path, counts in list(by_path.items())[1:]:
             check(counts[name] > 0, f"{name} was never launched by {path}")
@@ -1211,7 +1502,8 @@ def main(argv) -> int:
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
          "launches_per_substep": per_substep[name],
          "max_abs_err": errs[name], **timed[name], "library_ms": None,
-         **({"coupled": coupled_timed[name]} if name in coupled_timed else {})}
+         **({"coupled": coupled_timed[name]} if name in coupled_timed else {}),
+         **({"with_mass": k1_mass} if name == "update_grid_blocks" else {})}
         for name, (route, source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

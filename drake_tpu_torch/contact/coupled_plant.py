@@ -9,9 +9,14 @@ FinalizeExternalContactForces, deformable_driver.h:210-218).
 
 Every tensor of a ``CoupledState`` may lead with the same lane axes: the
 rigid state ``(..., nq + nv)`` and the particles ``(..., n, ...)``.  The port
-carries the explicit penalty branch of ``step``; the implicit grid-contact
-branches (tiled and dense) and the cloth branch raise ``NotImplementedError``
-(ROADMAP.md, Queue 1 items 2-6).
+carries two branches of ``step``: the explicit penalty
+(``mpm/coupling.py``) and the dense implicit grid contact
+(``mpm/grid_contact.py``, ``contact_model="implicit"`` with
+``tiled=False``).  The tiled implicit branch, the default for "implicit"
+and so for "auto" on stiff contact, raises ``NotImplementedError``
+(ROADMAP.md, Queue 1 items 2 and 5), and so does the cloth branch (item
+6).  In both ported branches the state's ``dropped`` is the largest P2G
+count of the step's substeps (the reference keeps the last one's).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from drake_tpu_torch.contact import plant as cplant
 from drake_tpu_torch.contact import sap
 from drake_tpu_torch.geometry.scene import CollisionScene
 from drake_tpu_torch.mpm import coupling as cpl
+from drake_tpu_torch.mpm import grid_contact as gcmod
 from drake_tpu_torch.mpm import solver as mpm
 from drake_tpu_torch.multibody import kinematics as kin
 from drake_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
@@ -58,9 +64,16 @@ class CoupledWorld:
     # stability bound binds (dt sqrt(stiffness) >= 1, half the bound
     # dt < ~2/sqrt(k)), penalty otherwise -- the reference's rule.
     contact_model: str = "auto"
+    # With "implicit": the solve's GridContactParams (None: built from
+    # contact_params, as the reference builds them) and the solve every
+    # contact_query_frequency substeps (the others take no contact).
+    grid_contact_params: Optional[object] = None
+    contact_query_frequency: int = 1
+    # With "implicit": the tile-hosted solve (not ported yet) or, False, the
+    # dense-grid solve.
+    tiled: bool = True
     # A codimensional cloth in place of the particles: the cloth branch,
-    # not ported yet.  The implicit branches' options (grid_contact_params,
-    # contact_query_frequency, tiled) come with them.
+    # not ported yet.
     cloth_config: Optional[object] = None
 
     def resolved_contact_model(self) -> str:
@@ -110,19 +123,23 @@ class CoupledWorld:
                 "the cloth branch of CoupledWorld.step is not ported yet "
                 "(ROADMAP.md, Queue 1 item 6)")
         contact_model = self.resolved_contact_model()
-        if contact_model == "implicit":
+        if contact_model == "implicit" and self.tiled:
             raise NotImplementedError(
-                "the implicit grid-contact branches of CoupledWorld.step (tiled and "
-                "dense) are not ported yet (ROADMAP.md, Queue 1 items 2, 4 and 5); "
-                f"dt * sqrt(stiffness) = {self.mpm_config.dt * math.sqrt(self.contact_params.stiffness):.3g}")
-        if contact_model != "penalty":
+                "the tiled implicit grid-contact branch of CoupledWorld.step is not "
+                "ported yet (ROADMAP.md, Queue 1 items 2 and 5); tiled=False takes the "
+                "dense solve; dt * sqrt(stiffness) = "
+                f"{self.mpm_config.dt * math.sqrt(self.contact_params.stiffness):.3g}")
+        if contact_model not in ("penalty", "implicit"):
             raise ValueError(f"unknown contact_model {self.contact_model!r}")
 
         geoms = self.rigid_geoms(params, q, v)
-        particles, impulses = cpl.simulate_coupled(
-            self.mpm_config, self.contact_params, state.particles, geoms,
-            self.substeps_per_step,
-        )
+        if contact_model == "implicit":
+            particles, impulses = self._dense_implicit_substeps(state.particles, geoms)
+        else:
+            particles, impulses = cpl.simulate_coupled(
+                self.mpm_config, self.contact_params, state.particles, geoms,
+                self.substeps_per_step,
+            )
         with record_function("coupled.sap_step"):
             # Impulse accumulators -> external spatial forces on the bodies.
             fext = q.new_zeros(q.shape[:-1] + (model.num_bodies, 6))
@@ -137,6 +154,31 @@ class CoupledWorld:
             sol = sap.solve_sap(data, data.v_star, self.sap_params)
             q_next = cplant.advance_positions(model, params, q, sol.v, h)
         return CoupledState(rigid=torch.cat([q_next, sol.v], dim=-1), particles=particles)
+
+    def _dense_implicit_substeps(self, particles: mpm.MpmState, geoms):
+        """The substeps of the dense implicit branch: the grid contact solve
+        on substeps k with k % contact_query_frequency == 0, free transfers
+        on the others.  Returns (particles, impulse sum (..., n_geoms, 6))."""
+        cp = self.contact_params
+        gc_params = self.grid_contact_params
+        if gc_params is None:
+            gc_params = gcmod.GridContactParams(
+                stiffness=cp.stiffness, damping=cp.damping, friction=cp.friction,
+                slip_velocity=cp.slip_velocity,
+            )
+        freq = max(1, self.contact_query_frequency)
+        acc = particles.v.new_zeros(particles.x.shape[:-2] + (len(geoms), 6))
+        dropped = particles.dropped
+        for k in range(self.substeps_per_step):
+            if k % freq == 0:
+                particles, imp = gcmod.coupled_substep_implicit(
+                    self.mpm_config, gc_params, particles, geoms)
+                acc = acc + imp
+            else:
+                particles = mpm.mpm_substep(self.mpm_config, particles)
+            dropped = particles.dropped if k == 0 else torch.maximum(
+                dropped, particles.dropped)
+        return particles.replace(dropped=dropped), acc
 
     def simulate(self, params, state: CoupledState, num_steps: int, tau=None):
         """`num_steps` coupled steps (zero actuation by default)."""

@@ -6,11 +6,12 @@ GPU pipeline it re-derives is multibody/gpu_mpm/cuda_mpm_solver.cu
 
 - Dense background grid, quadratic B-spline weights, APIC/MLS-MPM transfers
   with the fused force B = -dt 4/dx^2 V0 P F^T + m C.
-- P2G and grid update (``grid_velocity``): on CUDA the blocked path -- sort
-  by 4^3-cell block, fixed-size active-block compaction, the K2 kernel per
-  block, then K1 from K2's block windows (halo combine, B x_node and the
-  update in one kernel, no dense grid); on the CPU the direct
-  ``index_add_`` scatter and the plain grid update.  ``particle_to_grid``
+- P2G and grid update (``grid_velocity``, and ``grid_velocity_and_mass``
+  with the node mass for the implicit grid contact): on CUDA the blocked
+  path -- sort by 4^3-cell block, fixed-size active-block compaction, the
+  K2 kernel per block, then K1 from K2's block windows (halo combine,
+  B (x_node - o) and the update in one kernel, no dense grid); on the CPU the
+  direct ``index_add_`` scatter and the plain grid update.  ``particle_to_grid``
   and ``update_grid`` (the dense K1) keep the dense grid between them.
 - G2P: the 27-tap stencil gather in plain torch, or, in the fused
   ``mpm_substep_blocked``, the K3 kernel over the same block sort.
@@ -184,6 +185,11 @@ def _bspline_weights(xp, dx):
 _STENCIL = tuple((i, j, k) for i in range(3) for j in range(3) for k in range(3))
 
 
+def _stencil_iter():
+    """The 27 stencil offsets (i, j, k), k fastest: the reference's order."""
+    return iter(_STENCIL)
+
+
 # ---------------------------------------------------------------------------
 # Constitutive model: fixed corotated (via Newton polar decomposition).
 # ---------------------------------------------------------------------------
@@ -328,9 +334,13 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
     base, w = _bspline_weights(x, dx)
     hi = device_constant((nx - 3, ny - 3, nz - 3), torch.int64, dev)
     base = torch.minimum(base.clamp_min(0), hi)
-    # u = m v + B(x_node - x_p) split into u0 = m v - B x_p and + B x_node.
-    u0 = mass[:, None] * state.v.reshape(N, 3) - torch.einsum("nij,nj->ni", affine, x)
     bxyz = base // 4
+    # u = m v + B (x_node - x_p) split into u0 = m v - B (x_p - o) and
+    # + B (x_node - o), about the origin o of the particle's block: the
+    # offsets are under 6 dx, so that in float32 no rounding of B x at
+    # |x| ~ 1 cancels between the two (mpm_kernels, the packed row).
+    origin = (4 * bxyz).to(dtype) * dx
+    u0 = mass[:, None] * state.v.reshape(N, 3) - torch.einsum("nij,nj->ni", affine, x - origin)
     lb_local = base - 4 * bxyz  # 0..3
     # Sort key: (lane * (nblocks + 1) + block id) * 64 + cell in block
     # (lx * 16 + ly * 4 + lz).  The lane stride leaves each lane's sentinel
@@ -403,16 +413,18 @@ def _grid_from_blocks(config: MpmConfig, sort: BlockSort, out) -> GridState:
     return GridState(mass=mass, momentum=momentum, dropped=sort.dropped)
 
 
-def _velocity_from_blocks(config: MpmConfig, sort: BlockSort) -> torch.Tensor:
+def _velocity_from_blocks(config: MpmConfig, sort: BlockSort, with_mass: bool = False):
     """K2 over the block sort, then K1 from its block windows: the grid
-    velocity ([L,] nx, ny, nz, 3) with no dense grid in between."""
+    velocity ([L,] nx, ny, nz, 3) with no dense grid in between; with
+    ``with_mass``, (velocity, node mass ([L,] nx, ny, nz)) from the same
+    launch."""
     out = mpm_kernels.p2g_block(
         sort.packed, sort.starts, sort.counts, config.block_capacity,
         plain=config.xla_only,
     )
     return mpm_kernels.update_grid_blocks(
         out, sort.active, config.grid_size, config.dx, config.dt, config.gravity,
-        config.wall_width, plain=config.xla_only,
+        config.wall_width, plain=config.xla_only, with_mass=with_mass,
     )
 
 
@@ -576,6 +588,20 @@ def grid_velocity(config: MpmConfig, state: MpmState):
         return update_grid(config, grid), grid.dropped
     sort = sort_particles(config, state)
     return _velocity_from_blocks(config, sort), sort.dropped
+
+
+def grid_velocity_and_mass(config: MpmConfig, state: MpmState):
+    """``grid_velocity`` with the node mass beside the velocity: (velocity
+    ([L,] nx, ny, nz, 3), mass ([L,] nx, ny, nz), the P2G's ``dropped``).
+    On CUDA without ``config.xla_only``, K2 and K1 from block windows, which
+    writes the mass too; on the CPU or under ``xla_only``, ``particle_to_grid``
+    and ``update_grid``."""
+    if config.xla_only or state.x.device.type == "cpu":
+        grid = particle_to_grid(config, state)
+        return update_grid(config, grid), grid.mass, grid.dropped
+    sort = sort_particles(config, state)
+    vel, mass = _velocity_from_blocks(config, sort, with_mass=True)
+    return vel, mass, sort.dropped
 
 
 def mpm_substep(config: MpmConfig, state: MpmState) -> MpmState:

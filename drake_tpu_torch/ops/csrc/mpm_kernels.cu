@@ -11,7 +11,8 @@
 // Packed particle rows (row stride `ld` floats, a multiple of 4, rows 16-byte
 // aligned; sorted by block and, within a block, by base cell with x slowest
 // and z fastest):
-//   0:16 values [m, u0 = m v - B x (3), B (9), pad (3)]
+//   0:16 values [m, u0 = m v - B (x - o) (3), B (9), pad (3)], o = 4 dx b the
+//        origin of the particle's block b (window node l lies at o + dx l)
 //   16:25 B-spline taps [wx0..2, wy0..2, wz0..2]   25:28 local base (0..3)
 //   28:31 x   31:40 F (row-major)
 // Block window node l = (i * 6 + j) * 6 + k, i/j/k the local offsets 0..5.
@@ -144,11 +145,18 @@ __global__ void empty_kernel() {}
 // the local index is < 2 and the block index > 0, the window of the block
 // below on that axis at local index + 4: at most 8 blocks, of which only
 // those in the lane's active list count.  Each contributes [m, u0 + B
-// x_node], x_node = float(grid index) * dx; the 8 terms are added in the
-// order of the plain version's halo combine (x, then y, then z), a missing
-// term as an exact zero, so the two differ only in the rounding of B x_node.
+// (x_node - o)], x_node - o = float(window index) * dx, the node's offset
+// from the origin o of that window's block (u0 is taken about o, so that no
+// float32 rounding of B x at |x| ~ 1 cancels against B x_node); the 8 terms
+// are added in the order of the plain version's halo combine (x, then y,
+// then z), a missing term as an exact zero, so the two differ only in the
+// rounding of B (x_node - o).
 // Then K1's update: p / max(m, 1e-12) + dt g on nodes with mass, zero within
-// `wall` nodes of each face of the lane's grid.
+// `wall` nodes of each face of the lane's grid.  With a non-null `mass`, the
+// kernel also writes each node's mass m, the same sum of the 8 terms, as
+// (L, nx, ny, nz) (walls included, 0 on nodes no active block covers, NaN in a
+// lane whose ids are out of order): the grid mass that the implicit grid
+// contact needs beside the velocity (drake_tpu/mpm/grid_contact.py:231).
 // Bound on this card: bytes -- the 13 live channels of each active block read
 // once and 12 B of velocity written per node, most of it the zeros of nodes
 // no active block covers.  Design: a tile is (lane, grid blocks (bx, by), a
@@ -163,16 +171,20 @@ __global__ void empty_kernel() {}
 // shuffle moves each component to the lane that stores it); a tile none
 // covers costs a warp one store.  At config 5's 256 lanes that is 262,144
 // warp-tiles, most of them empty, so their instructions count: the walk
-// steps the tile coordinates without a division.  An active list out of ascending order
+// steps the tile coordinates without a division.  The mass, where asked
+// for, is one more row per warp and tile: 32 floats, 128 contiguous bytes,
+// one store a lane.  An active list out of ascending order
 // would make the search miss blocks: its lane gets NaN instead of wrong
 // sums.  Indices within a lane are 32-bit, offsets into the (L * A, 16, 216)
-// input and the output 64-bit.
-__global__ void __launch_bounds__(kK1bThreads)
+// input and the output 64-bit.  The launch bound keeps two CTAs of 512 on an
+// SM (at most 64 registers a thread).
+__global__ void __launch_bounds__(kK1bThreads, 2)
 update_grid_blocks_kernel(const float* __restrict__ win,
                           const int64_t* __restrict__ active, int num_active,
                           int nx, int ny, int nz, float dx, float dt,
                           float gx, float gy, float gz, int wall,
-                          int tiles_per_cta, float* __restrict__ vel) {
+                          int tiles_per_cta, float* __restrict__ vel,
+                          float* __restrict__ mass) {
   extern __shared__ int ids[];  // the lane's active block ids
   // [tile][dx * 2 + dy][bz - bz0 + 1]: slot of the covering block, or -1.
   __shared__ int slot[kK1bMaxTiles][4][kK1bSlots];
@@ -236,18 +248,26 @@ update_grid_blocks_kernel(const float* __restrict__ win,
         vel + ((static_cast<int64_t>(lane) * nx + i) * ny + j) * static_cast<int64_t>(nz) * 3 +
         12 * bz0);
     const int row_vec = zlen * 3 / 4;
+    // The row's zlen masses, from node (i, j, 4 bz0) on (no mass output
+    // where `mass` is null); lane kk stores the mass of its node.
+    const auto store_mass = [&](float value) {
+      if (mass != nullptr && kk < zlen) {
+        mass[((static_cast<int64_t>(lane) * nx + i) * ny + j) * static_cast<int64_t>(nz) +
+             4 * bz0 + kk] = value;
+      }
+    };
     if (bad || !covered[q]) {
       const float f = bad ? __int_as_float(0x7fc00000) : 0.f;
       if (kk < row_vec) out4[kk] = make_float4(f, f, f, f);
+      store_mass(f);
       continue;
     }
     float v[3] = {0.f, 0.f, 0.f};
+    float m = 0.f;
     if (kk < zlen) {
-      const float xn[3] = {static_cast<float>(i) * dx, static_cast<float>(j) * dx,
-                           static_cast<float>(k) * dx};
       // Term u = (dx, dy, dz) bits (4, 2, 1): [m, p] of block (bx - dx,
-      // by - dy, bz - dz) at window node l, p = u0 + B x_node; 0 where that
-      // block does not count.
+      // by - dy, bz - dz) at window node l, p = u0 + B (x_node - o); 0 where
+      // that block does not count.
       float tm[8], tp[3][8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
@@ -259,12 +279,15 @@ update_grid_blocks_kernel(const float* __restrict__ win,
           const int l = ((a + 4 * ox) * 6 + (b + 4 * oy)) * 6 + (c + 4 * oz);
           const float* w = win + (static_cast<int64_t>(lane) * num_active + sl) *
                                      kP2GChannels * kNodes + l;
+          const float xl[3] = {static_cast<float>(a + 4 * ox) * dx,
+                               static_cast<float>(b + 4 * oy) * dx,
+                               static_cast<float>(c + 4 * oz) * dx};
           tm[u] = w[0];
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
             const float* B = w + (4 + 3 * r) * kNodes;
             tp[r][u] = w[(1 + r) * kNodes] +
-                       fmaf(B[2 * kNodes], xn[2], fmaf(B[kNodes], xn[1], B[0] * xn[0]));
+                       fmaf(B[2 * kNodes], xl[2], fmaf(B[kNodes], xl[1], B[0] * xl[0]));
           }
         }
       }
@@ -272,7 +295,7 @@ update_grid_blocks_kernel(const float* __restrict__ win,
       auto tree = [](const float (&s)[8]) {
         return ((s[0] + s[4]) + (s[2] + s[6])) + ((s[1] + s[5]) + (s[3] + s[7]));
       };
-      const float m = tree(tm);
+      m = tree(tm);
       if (inside_walls(i, j, k, nx, ny, nz, wall)) {
 #pragma unroll
         for (int r = 0; r < 3; ++r) v[r] = grid_velocity(tree(tp[r]), m, dt, g[r]);
@@ -290,6 +313,7 @@ update_grid_blocks_kernel(const float* __restrict__ win,
       o[h] = f % 3 == 0 ? v0 : (f % 3 == 1 ? v1 : v2);
     }
     if (kk < row_vec) out4[kk] = make_float4(o[0], o[1], o[2], o[3]);
+    store_mass(m);
   }
 }
 
@@ -678,7 +702,7 @@ int mpm_update_grid(const float* mass, const float* mom, float* vel, int lanes,
 int mpm_update_grid_blocks(const float* win, const int64_t* active, int lanes,
                            int num_active, int nx, int ny, int nz, float dx,
                            float dt, float gx, float gy, float gz, int wall,
-                           float* vel, void* stream) {
+                           float* vel, float* mass, void* stream) {
   // Tiles of a lane, split evenly over CTAs so that all lanes' CTAs number
   // at most about four per SM (two are resident at a time), a CTA at most
   // kK1bMaxTiles tiles.
@@ -703,7 +727,7 @@ int mpm_update_grid_blocks(const float* win, const int64_t* active, int lanes,
   update_grid_blocks_kernel<<<grid, kK1bThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       win, active, num_active, nx, ny, nz, dx, dt, gx, gy, gz, wall,
-      tiles_per_cta, vel);
+      tiles_per_cta, vel, mass);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,8 +14,10 @@ went through the kernels.
 K1 comes in two forms.  ``update_grid`` is the direct counterpart of the TPU
 kernel, on a dense grid (mass and momentum).  ``update_grid_blocks`` is the
 grid update of the substeps: it reads K2's block windows and the active
-block list, gathers each node's halo, adds B x_node and applies the update
-in one kernel, so that no dense grid is built between K2 and K1.
+block list, gathers each node's halo, adds B (x_node - o) and applies the
+update in one kernel, so that no dense grid is built between K2 and K1;
+asked (``with_mass=True``), it also writes the node mass, which the
+implicit grid contact needs beside the velocity.
 
 Lanes: K1 and K2 also take L independent problems in one launch.  K1 takes
 ``mass (L, nx, ny, nz)`` and ``momentum (L, 3, nx, ny, nz)``, the lane a grid
@@ -27,9 +29,12 @@ versions take the same shapes.
 
 The packed particle row keeps the JAX package's column meaning but is 40
 wide instead of 128 (no TPU lane padding): 0:16 values [m, u0 (3), B (9),
-pad (3)], 16:25 B-spline taps, 25:28 local base, 28:31 x, 31:40 F.  Rows are
-sorted by block and, within a block, by local base (``sort_particles`` does
-both).  The second order is part of ``p2g_block``'s contract: the K2 kernel
+pad (3)], 16:25 B-spline taps, 25:28 local base, 28:31 x, 31:40 F.  The
+u0 = m v - B (x - o) is taken about the origin o = 4 dx b of the particle's
+block b (the JAX package takes it about 0; in float32 the rounding of B x at
+|x| ~ 1 then cancels against B x_node).  Rows are sorted by block and,
+within a block, by local base (``sort_particles`` does both).  The second
+order is part of ``p2g_block``'s contract: the K2 kernel
 walks each cell's rows as one run and answers a block that breaks the order
 with NaN, while the plain version adds the rows in any order.  The TPU's
 8-row DMA alignment (``align_starts``/``align_window``), its custom_vmap batch
@@ -51,11 +56,14 @@ G2P_VEL_CH = 12  # [v(3), v*node_x(3), v*node_y(3), v*node_z(3)]
 G2P_OUT = 24  # [x_new(3), v_new(3), F_new(9), C_new(9)]
 PACKED_COLS = 40
 LAUNCHES = {"update_grid": 0, "update_grid_blocks": 0, "p2g_block": 0, "g2p_block": 0}
+# The launches of LAUNCHES["update_grid_blocks"] that also wrote the mass.
+LAUNCHES_WITH_MASS = {"update_grid_blocks": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LAUNCHES_WITH_MASS):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,8 +226,8 @@ def _combine(T, block_axis, local_axis, nb):
 
 def grid_from_blocks_reference(out, active, grid_size, dx):
     """The dense grid of each lane from K2's output ([L,] A, 16, 216) and
-    the active block ids ([L,] A): add B x_node to the momentum at every
-    window node, place each active block's window in its lane's grid (a
+    the active block ids ([L,] A): add B (x_node - o) to the momentum at
+    every window node, o the origin of the window's block (u0's origin), place each active block's window in its lane's grid (a
     block table), combine the halos (x, then y, then z).  Sentinel entries
     (id nblocks) contribute nothing.  Returns (mass ([L,] nx, ny, nz),
     momentum ([L,] nx, ny, nz, 3))."""
@@ -230,13 +238,13 @@ def grid_from_blocks_reference(out, active, grid_size, dx):
     L = math.prod(lanes)
     LA = L * active.shape[-1]
     out = out.reshape(LA, P2G_NV, P2G_NODES)
-    node_pos = window_node_pos(grid_size, dx, active, out.dtype)
+    # Window node l's offset from its block's origin.
+    offset = window_node_pos(grid_size, dx, torch.zeros((), dtype=torch.int64,
+                                                        device=active.device), out.dtype)
     M_blk = out[:, 0, :]
     U_blk = out[:, 1:4, :].transpose(1, 2)  # (LA, 216, 3)
     C_blk = out[:, 4:13, :].transpose(1, 2).reshape(LA, P2G_NODES, 3, 3)
-    mom_blk = U_blk + torch.einsum(
-        "alij,alj->ali", C_blk, node_pos.reshape(LA, P2G_NODES, 3)
-    )
+    mom_blk = U_blk + torch.sum(C_blk * offset[:, None, :], dim=-1)
     # Active ids are unique within a lane; sentinel entries (all zero) go to
     # the extra row.
     lane_off = (torch.arange(L, device=active.device) * nblocks).reshape(lanes + (1,))
@@ -252,26 +260,31 @@ def grid_from_blocks_reference(out, active, grid_size, dx):
     return Tz[..., 0], Tz[..., 1:]
 
 
-def update_grid_blocks_reference(out, active, grid_size, dx, dt, gravity, wall_width):
+def update_grid_blocks_reference(out, active, grid_size, dx, dt, gravity, wall_width,
+                                 with_mass=False):
     """Plain version: the dense grid of ``grid_from_blocks_reference``, then
     ``update_grid_reference``.  Returns the grid velocity ([L,] nx, ny, nz,
-    3).  Takes the active ids in any order."""
+    3), and with ``with_mass`` the pair (velocity, that grid's mass ([L,]
+    nx, ny, nz)).  Takes the active ids in any order."""
     mass, momentum = grid_from_blocks_reference(out, active, grid_size, dx)
     vel = update_grid_reference(mass, momentum.movedim(-1, -4), dt, gravity, wall_width)
-    return vel.movedim(-4, -1)
+    vel = vel.movedim(-4, -1)
+    return (vel, mass) if with_mass else vel
 
 
 # Active ids of one lane that the kernel holds in shared memory (int32 each).
 MAX_WINDOW_BLOCKS = 49_152
 
 
-def update_grid_blocks_cuda(out, active, grid_size, dx, dt, gravity, wall_width):
+def update_grid_blocks_cuda(out, active, grid_size, dx, dt, gravity, wall_width,
+                            with_mass=False):
     """Launch the grid update from block windows
     (``update_grid_blocks_kernel``).  out: ([L,] A, 16, 216) float32, K2's
     output; active: ([L,] A) int64, each lane's ids ascending and unique but
     for the sentinel nblocks, as ``sort_particles`` makes them.  Returns the
-    velocity ([L,] nx, ny, nz, 3), contiguous.  A lane whose ids are out of
-    ascending order gets NaN."""
+    velocity ([L,] nx, ny, nz, 3), contiguous, and with ``with_mass`` the
+    pair (velocity, mass ([L,] nx, ny, nz)).  A lane whose ids are out of
+    ascending order gets NaN in both."""
     _check("active", active, torch.int64)
     lanes = tuple(active.shape[:-1])
     A = active.shape[-1]
@@ -285,25 +298,32 @@ def update_grid_blocks_cuda(out, active, grid_size, dx, dt, gravity, wall_width)
     if A > MAX_WINDOW_BLOCKS:
         raise ValueError(f"update_grid_blocks: {A} active blocks, at most {MAX_WINDOW_BLOCKS}")
     vel = torch.empty(lanes + (nx, ny, nz, 3), dtype=torch.float32, device=out.device)
+    mass = torch.empty(lanes + (nx, ny, nz), dtype=torch.float32, device=out.device) if (
+        with_mass) else None
+    result = (vel, mass) if with_mass else vel
     if vel.numel() == 0:
-        return vel
+        return result
     lib = _build.load_library()
     gx, gy, gz = (float(g) for g in gravity)
     with torch.cuda.device(out.device):
         rc = lib.mpm_update_grid_blocks(
             out.data_ptr(), active.data_ptr(), L, A, nx, ny, nz, float(dx),
             float(dt), gx, gy, gz, int(wall_width), vel.data_ptr(),
-            _stream(out.device),
+            mass.data_ptr() if with_mass else None, _stream(out.device),
         )
     _raise_on_error("update_grid_blocks", rc)
     LAUNCHES["update_grid_blocks"] += 1
-    return vel
+    if with_mass:
+        LAUNCHES_WITH_MASS["update_grid_blocks"] += 1
+    return result
 
 
-def update_grid_blocks(out, active, grid_size, dx, dt, gravity, wall_width, plain=False):
+def update_grid_blocks(out, active, grid_size, dx, dt, gravity, wall_width, plain=False,
+                       with_mass=False):
     """Dispatcher: the plain version for CPU tensors or ``plain=True``, the
-    grid update from block windows for CUDA tensors."""
-    args = (out, active, grid_size, dx, dt, gravity, wall_width)
+    grid update from block windows for CUDA tensors.  ``with_mass``: return
+    (velocity, mass)."""
+    args = (out, active, grid_size, dx, dt, gravity, wall_width, with_mass)
     if plain or out.device.type == "cpu":
         return update_grid_blocks_reference(*args)
     return update_grid_blocks_cuda(*args)

@@ -363,20 +363,46 @@ def test_auto_contact_model_picks_as_the_reference(stiffness, model):
 
 @pytest.mark.parametrize("change", ["implicit", "auto_stiff", "cloth"])
 def test_unported_branches_raise(change):
+    """The tiled implicit branch (the default of "implicit", and so of
+    "auto" on stiff contact) and the cloth branch raise, naming their
+    ROADMAP items."""
     import torch
 
     from drake_tpu_torch.benchmarks import paddle_blob
     from drake_tpu_torch.mpm import coupling as tcpl
 
     w = paddle_blob.build(device="cpu", dtype=torch.float64)
-    world = {
-        "implicit": dataclasses.replace(w.world, contact_model="implicit"),
-        "auto_stiff": dataclasses.replace(
-            w.world, contact_params=tcpl.MpmContactParams(stiffness=1e7)),
-        "cloth": dataclasses.replace(w.world, cloth_config=object()),
+    world, items = {
+        "implicit": (dataclasses.replace(w.world, contact_model="implicit", tiled=True),
+                     "items 2 and 5"),
+        "auto_stiff": (dataclasses.replace(
+            w.world, contact_params=tcpl.MpmContactParams(stiffness=1e7)), "items 2 and 5"),
+        "cloth": (dataclasses.replace(w.world, cloth_config=object()), "item 6"),
     }[change]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):
+    assert world.tiled
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {items}"):
         world.step(w.params, w.state0, torch.zeros(1, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("contact_model", ["implicit", "auto_stiff"])
+def test_dense_implicit_branch_steps(contact_model):
+    """With tiled=False the implicit branch runs the dense grid contact
+    (tests/test_torch_grid_contact.py holds it against the JAX package)."""
+    import torch
+
+    from drake_tpu_torch.benchmarks import paddle_blob
+    from drake_tpu_torch.mpm import coupling as tcpl
+
+    w = paddle_blob.build(device="cpu", dtype=torch.float64)
+    world = dataclasses.replace(w.world, tiled=False, substeps_per_step=1)
+    if contact_model == "implicit":
+        world = dataclasses.replace(world, contact_model="implicit")
+    else:
+        world = dataclasses.replace(world, contact_params=tcpl.MpmContactParams(stiffness=1e7))
+    assert world.resolved_contact_model() == "implicit"
+    nxt = world.step(w.params, w.state0, torch.zeros(1, dtype=torch.float64))
+    assert bool(torch.isfinite(nxt.particles.x).all()) and bool(torch.isfinite(nxt.rigid).all())
+    assert int(nxt.particles.dropped) == 0
 
 
 def test_unported_particle_shapes_raise():

@@ -312,7 +312,8 @@ def _random_windows(rng, lanes, dtype, live=18, A=24):
 def _dense_grid_np(out, active):
     """Independent construction of one lane's grid: each active block's
     window added at grid index 4 block + l (rows past the grid dropped),
-    momentum u0 + B x_node."""
+    momentum u0 + B (x_node - o) = u0 + B l dx, u0 taken about the block's
+    origin o = 4 block dx (the packed row's contract)."""
     nx, ny, nz = WIN_GRID
     nby, nbz = ny // 4, nz // 4
     mass = np.zeros((nx + 2, ny + 2, nz + 2))
@@ -324,7 +325,7 @@ def _dense_grid_np(out, active):
             continue
         node = 4 * np.array([bid // (nby * nbz), (bid // nbz) % nby, bid % nbz]) + local
         B = out[a, 4:13].T.reshape(216, 3, 3).astype(np.float64)
-        p = out[a, 1:4].T + np.einsum("lij,lj->li", B, node * WIN_DX)
+        p = out[a, 1:4].T + np.einsum("lij,lj->li", B, local * WIN_DX)
         np.add.at(mass, tuple(node.T), out[a, 0])
         np.add.at(mom, tuple(node.T), p)
     return mass[:nx, :ny, :nz], np.moveaxis(mom[:nx, :ny, :nz], -1, 0)

@@ -69,6 +69,7 @@ PORT_MODULES = (
     "drake_tpu_torch.contact.plant",
     "drake_tpu_torch.contact.coupled_plant",
     "drake_tpu_torch.mpm.coupling",
+    "drake_tpu_torch.mpm.grid_contact",
     "drake_tpu_torch.trajopt.ilqr",
     "drake_tpu_torch.control.mpc",
     "drake_tpu_torch.control.mppi",
