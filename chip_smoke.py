@@ -2,7 +2,8 @@
 """On-card smoke run of drake_tpu_torch, the PyTorch + CUDA port: the MPM
 substep (slice 1), the batched iiwa contact-implicit MPC of bench.py (slice
 2), the coupled MPM + rigid world with its MPPI controller (slice 3,
-BASELINE config 5), and that world with the dense implicit grid contact.
+BASELINE config 5), that world with the dense implicit grid contact, and
+the codimensional cloth's bagging demo.
 Run from the root of a checkout, on a machine with one
 NVIDIA GPU:
 
@@ -104,6 +105,34 @@ same world, with the JAX bench's --implicit solve parameters:
        and timed beside the velocity-only launch; with ``--profile``, the
        device share and host ms of ``grid_contact.newton`` and
        ``grid_contact.line_search`` per coupled substep.
+
+Then the cloth (``mpm/cloth.py``, the cloth branch of
+``CoupledWorld.step``) on the fork's bagging demo
+(``drake_tpu_torch.examples.mpm_bagging``: a 22 x 22 sheet held at its
+corners catches a free ball on a floating joint; 32^3 grid, 20 substeps a
+coupled step; K2 and K1 from block windows, K3 not on this path):
+
+14. a. parity: one coupled step of the bagging world on 2 lanes by each
+       contact model (the ball in the sheet at the demo's speed at contact),
+       and 20 substeps of ``simulate_cloth`` on the drape sheet, float32 on
+       the card against float64 on the CPU within BAGGING_PARITY, Newton
+       iteration counts at most 1 apart;
+    b. the main path: the demo's first BAGGING_STEPS coupled steps with the
+       implicit grid contact on one world, timed by the host wall after a
+       warm-up step: substeps/s, peak memory, Newton iterations, the kernel
+       launches (one K2 and one K1 with the node mass a substep), with the
+       gates: finite, dropped == 0, the sheet's impulse on the ball from
+       its first contact on pointing up, the ball's height within
+       BAGGING_Z_END_BOUND of the JAX package's CPU run;
+    c. steps 60-70 (before contact) and 160-170 (in contact) from 14b's
+       states with the kernels and with ``xla_only=True``, within
+       BAGGING_MAX_DIFF_PATHS in x and v; K2 and K1 with the mass at
+       the cloth's shape (one world, 32^3, A = 256) against their plain
+       versions, timed warm and cold beside their bounds (K2's counts the
+       blocks that hold particles, as K1 from block windows reads them); with
+       ``--profile``, ``cloth.substep``, ``cloth.forces``,
+       ``grid_contact.newton`` and the device timeline of one coupled step;
+    d. 14b with the penalty contact, with its gates less the Newton's.
 
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -250,6 +279,68 @@ IMPLICIT_MAX_DIFF_PATHS = 1e-4
 IMPLICIT_LAYERS = ("grid_contact.substep", "grid_contact.newton", "grid_contact.line_search",
                    "coupled.sap_step")
 IMPLICIT_TOP_LAYERS = ("grid_contact.substep", "coupled.sap_step")
+
+# The cloth bagging world (phase 14): drake_tpu_torch.examples.mpm_bagging,
+# the full width of examples/mpm_bagging.py (22 x 22 sheet, 32^3 grid, dt
+# 5e-5, 20 substeps a 1 ms step, the ball on a floating joint).  The sheet,
+# held at its corners only, sags under gravity with the falling ball: the
+# ball first leaves its free fall at step 152 in both packages (on the CPU,
+# tests/bagging_reference.py), is caught by step 190 and thrown back up.
+BAGGING_STEPS = 200  # of the demo's 2,200: the fall and the catch
+BAGGING_CONTACT_STEP = 152
+# 14c: 10 steps with the kernels and with xla_only from 14b's state at step
+# 60 (before contact) and at step 160 (in contact).
+BAGGING_PATH_STARTS = (60, 160)
+BAGGING_PATH_STEPS = 10
+# 14a: the ball at the demo's speed at contact, its centre at z = 0.405, so
+# that the sheet's 4 central vertices lie 3.6 mm inside it (with the centre
+# at 0.41, its lowest point on the sheet's plane, they lie 1.3 mm outside and
+# one step makes no contact); lane 1 ball and sheet 1 cm along x.  The
+# drape: simulate_cloth's 20 substeps, the sheet 5 mm above the sphere's
+# top, its vertices perturbed by 2 mm from a generator seeded SEED so that
+# the elastic forces act.
+BAGGING_PARITY_Z = 0.405
+BAGGING_PARITY_VZ = -0.626
+BAGGING_PARITY_SHIFT = 0.01
+DRAPE_PARITY_Z = 0.475
+DRAPE_PARITY_SUBSTEPS = 20
+# Phase 14a bounds, card float32 against CPU float64, as phase 13a's: 100x
+# the same comparison between float32 and float64 on a CPU
+# (``bagging_parity_values`` on the CPU in both types), which gave
+# BAGGING_PARITY_CPU.
+BAGGING_PARITY_CPU = {
+    "implicit": {"x": 3.4e-7, "v": 2.0e-5, "C": 3.4e-5, "rigid": 8.9e-5,
+                 "impulses": 1.4e-5, "residual": 6.9e-4},
+    "penalty": {"x": 4.5e-7, "v": 2.4e-4, "C": 1.5e-3, "rigid": 2.0e-7, "impulses": 8.7e-6},
+    "drape": {"x": 2.1e-7, "v": 2.4e-5, "C": 3.2e-5},
+}
+BAGGING_PARITY = {case: {name: 100 * value for name, value in values.items()}
+                  for case, values in BAGGING_PARITY_CPU.items()}
+BAGGING_PARITY_ITERATIONS = 1
+# Phase 14b and 14d: the ball's height after step 200 against the JAX
+# package's CPU float32 run of the same 200 steps (tests/bagging_reference.py
+# [--penalty], JAX_PLATFORMS=cpu), within a bound fixed before the first run
+# on the card.  There the port's CPU float32 and float64 runs ended 4.39e-5 m
+# apart with the implicit contact (the JAX package's float32 run 7.50e-5 m
+# from the port's, 1.19e-4 m from its float64: each solve stops at its
+# tolerance, and the order of the sums moves where) and 2.85e-7 m apart with
+# the penalty (the JAX package's float32 run equal to the port's): the bounds
+# are 23x and 35x those spreads.
+BAGGING_Z_END = {"implicit": 0.2921878397464752, "penalty": 0.27795833349227905}
+BAGGING_Z_END_BOUND = {"implicit": 1e-3, "penalty": 1e-5}
+# Phase 14c: kernels against plain versions, max |x| and |v| difference after
+# the 10 steps.  Before contact, 1e-4 as phase 13c.  In contact the solves
+# stop at their tolerance and the ball's spin (0.15 kg, r 0.07 m) feels
+# every rounding: the same two summation orders, the blocked P2G's plain
+# version against the scatter, both float32 on a CPU over steps 160-170
+# (tests/bagging_reference.py --paths), differed by 2.15e-6 in x and 8.31e-4
+# in v (and 0.30 rad/s in the ball's spin, so no bound is put on the
+# rigid state).  Runs of this phase on an NVIDIA H100 80GB HBM3 at 700 W
+# read at most 1.073e-6 in x (four runs, from 1.8e-7 up) and 3.094e-4 in v
+# (five runs, from 2.6e-5 up); the bounds are 3x those largest readings.
+BAGGING_MAX_DIFF_PATHS = {60: {"x": 1e-4, "v": 1e-4}, 160: {"x": 3.3e-6, "v": 9.3e-4}}
+CLOTH_LAYERS = ("cloth.substep", "cloth.forces", "grid_contact.newton", "coupled.sap_step")
+CLOTH_TOP_LAYERS = ("cloth.substep", "coupled.sap_step")
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -750,15 +841,30 @@ def profile_layers(torch, run, n, layers, top_layers, tag, unit, card, named=())
     timeline_ms = sum(d for _, d in timeline) / 1e3
     outside = sum(d for t, d in timeline
                   if not any(inside(layer, t) for layer in top_layers)) / 1e3
+
+    # By launch: the kernels that the ops inside a range's calls launched
+    # (the profiler ties each kernel to the op that launched it).  A range's
+    # span on the device runs from the first to the last kernel that it
+    # launches outside its nested ranges, so a range that opens and closes
+    # with nested ranges (cloth.substep) spans only its middle there.
+    annotations = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+
+    def launched_us(e):
+        return (sum(k.duration for k in e.kernels if k.name not in annotations)
+                + sum(launched_us(c) for c in e.cpu_children))
+
     result = {"device_ms": device_ms / n, "timeline_ms": timeline_ms / n, "layers": {}}
     for layer in layers:
         check(spans[layer], f"no device annotation of {layer} in the trace")
         dev = sum(d for t, d in timeline if inside(layer, t)) / 1e3
+        launched = sum(launched_us(e) for e in prof.events()
+                       if e.name == layer and e.device_type == DeviceType.CPU) / 1e3
         rows = [a for a in avgs if a.key == layer and a.device_type == DeviceType.CPU]
         host = sum(float(a.cpu_time_total) for a in rows) / 1e3
         calls = sum(a.count for a in rows)
-        print(f"[profile {tag}] {layer}: device kernels {dev / n!r} ms/{unit}, host "
-              f"{host / n!r} ms/{unit} (both inclusive), {calls / n!r} calls/{unit} [{card}]")
+        print(f"[profile {tag}] {layer}: device kernels {dev / n!r} ms/{unit} ({launched / n!r} "
+              f"by launch), host {host / n!r} ms/{unit} (both inclusive), {calls / n!r} "
+              f"calls/{unit} [{card}]")
         result["layers"][layer] = (dev / n, host / n)
     print(f"[profile {tag}] outside {'/'.join(top_layers)}: device kernels "
           f"{outside / n!r} ms/{unit}; all kernels on the timeline {timeline_ms / n!r} "
@@ -1192,11 +1298,12 @@ def implicit_rollout(torch, mk, gc, paddle_blob, bench_world, lanes, dev, card,
             "iterations_median": float(its.double().median()), "capped": int(capped.sum())}
 
 
-def implicit_k1_mass(torch, mpm, mk, config, state, flush, card):
+def implicit_k1_mass(torch, mpm, mk, config, state, flush, card, tag=None):
     """K1 from block windows with the mass, on the 64-lane rollout's final
-    state: held against its plain version (mass and velocity each within
-    1e-5 of their largest magnitude) and timed, warm and cold with its
-    bound, beside the velocity-only launch on the same input."""
+    state (phase 13) or the cloth's (phase 14): held against its plain
+    version (mass and velocity each within 1e-5 of their largest magnitude)
+    and timed, warm and cold with its bound, beside the velocity-only launch
+    on the same input."""
     sort = mpm.sort_particles(config, state)
     win = mk.p2g_block_cuda(sort.packed, sort.starts, sort.counts, config.block_capacity)
     args = (win, sort.active, config.grid_size, config.dx, config.dt, config.gravity,
@@ -1204,7 +1311,7 @@ def implicit_k1_mass(torch, mpm, mk, config, state, flush, card):
     vel, mass = mk.update_grid_blocks_cuda(*args, with_mass=True)
     vel_r, mass_r = mk.update_grid_blocks_reference(*args, with_mass=True)
     torch.cuda.synchronize()
-    tag = f"implicit K1 mass L={state.x.shape[0]} A={config.max_active_blocks}"
+    tag = tag or f"implicit K1 mass L={state.x.shape[0]} A={config.max_active_blocks}"
     err = {}
     for name, got, ref in (("mass", mass, mass_r), ("v", vel, vel_r)):
         check(bool(torch.isfinite(got).all()), f"{tag}: non-finite {name}")
@@ -1280,6 +1387,243 @@ def implicit_phase(torch, mpm, mk, gc, paddle_blob, bench_world, dev, card, prof
     return first["launches"], runs[IMPLICIT_LANES[1]]["launches"], k1_mass
 
 
+def bagging_parity_values(torch, cloth, mpm_bagging, mpm_cloth_demo, gc, device, dtype):
+    """Phase 14a's quantities on `device` in `dtype`: one coupled step of the
+    bagging world on 2 lanes by each contact model (BAGGING_PARITY_*), and
+    DRAPE_PARITY_SUBSTEPS substeps of simulate_cloth on the drape.  Returns
+    ({case: {quantity: float64 on the CPU}}, the implicit step's Newton
+    iterations (substeps, lanes))."""
+    import numpy as np
+
+    out, its = {}, None
+    for model in ("implicit", "penalty"):
+        bag = mpm_bagging.build(model, device=device, dtype=dtype)
+        s = mpm_bagging.lanes(bag.state0, 2)
+        rigid = s.rigid.clone()
+        rigid[:, 6] = BAGGING_PARITY_Z
+        rigid[:, 12] = BAGGING_PARITY_VZ
+        rigid[1, 4] += BAGGING_PARITY_SHIFT
+        x = s.particles.x.clone()
+        x[1, :, 0] += BAGGING_PARITY_SHIFT
+        s = s._replace(rigid=rigid, particles=s.particles.replace(x=x))
+        with torch.no_grad(), gc.solve_log() as log:
+            nxt, imp = bag.world.step_with_impulses(bag.params, s, rigid.new_zeros(2, 6))
+        vals = {"x": nxt.particles.x, "v": nxt.particles.v, "C": nxt.particles.C,
+                "rigid": nxt.rigid, "impulses": imp}
+        if model == "implicit":
+            vals["residual"] = torch.stack([sol.residual for sol in log])
+            its = torch.stack([sol.iterations for sol in log]).cpu()
+        check(int(nxt.particles.dropped.max()) == 0, f"bagging parity {model}: dropped")
+        out[model] = vals
+    grid, cfg, sheet, geoms, params = mpm_cloth_demo.build(device, dtype, z=DRAPE_PARITY_Z)
+    rng = np.random.default_rng(SEED)
+    x = sheet.x + torch.as_tensor(0.002 * rng.standard_normal(tuple(sheet.x.shape)),
+                                  dtype=dtype, device=device)
+    with torch.no_grad():
+        st, acc = cloth.simulate_cloth(grid, cfg, sheet.replace(x=x), DRAPE_PARITY_SUBSTEPS,
+                                       geoms, params)
+    out["drape"] = {"x": st.x, "v": st.v, "C": st.C}
+    check(float(acc.abs().max()) == 0.0, "drape parity: the sheet met the sphere")
+    return ({case: {k: v.detach().double().cpu() for k, v in vals.items()}
+             for case, vals in out.items()}, its)
+
+
+def bagging_parity(torch, modules, dev, card):
+    """Phase 14a: card float32 against CPU float64, within BAGGING_PARITY,
+    the implicit step's iteration counts within BAGGING_PARITY_ITERATIONS."""
+    ref, its_ref = bagging_parity_values(torch, *modules, torch.device("cpu"), torch.float64)
+    got, its = bagging_parity_values(torch, *modules, dev, torch.float32)
+    for case in ref:
+        for name, (rel, scale) in coupled_parity_errors(ref[case], got[case]).items():
+            bound = BAGGING_PARITY[case][name]
+            ok = rel <= bound
+            print(f"[bagging parity {case}] {name} {tuple(ref[case][name].shape)}: "
+                  f"max|f32 card - f64 cpu| / scale = {rel:.3e} (<= {bound:.1e}; scale "
+                  f"{scale:.3e}; float32 on a CPU: {BAGGING_PARITY_CPU[case][name]:.1e}) "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            check(ok, f"bagging parity {case}: {name} off by {rel:.3e} (bound {bound:.1e})")
+    d = int((its - its_ref).abs().max())
+    ok = d <= BAGGING_PARITY_ITERATIONS
+    print(f"[bagging parity implicit] Newton iterations a solve, lanes x substeps: card "
+          f"{its.T.tolist()}, cpu float64 {its_ref.T.tolist()}, max |difference| {d} (<= "
+          f"{BAGGING_PARITY_ITERATIONS}) {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"bagging parity: iteration counts {d} apart")
+    check(bool((its_ref > 1).any(dim=0).all()), "bagging parity: a lane's ball never met the sheet")
+
+
+def bagging_run(torch, mk, gc, mpm_bagging, model, dev, xla_only=False, state=None, start=0,
+                steps=None, keep=()):
+    """`steps` steps (default BAGGING_STEPS) of the bagging demo on one world
+    from `state` at step `start` (default: the demo's start), after one
+    warm-up step from there, keeping the states after the steps in `keep`.
+    Returns (the world, the joined results, {step: kept state}, launches,
+    launches with the mass, Newton iterations, peak bytes)."""
+    steps = BAGGING_STEPS if steps is None else steps
+    bag = mpm_bagging.build(model, device=dev, xla_only=xla_only)
+    mpm_bagging.simulate(bag, 1, state=state, start=start)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    parts, kept = [], {}
+    with gc.solve_log() as log:
+        at = start
+        for stop in sorted(keep) + [start + steps]:
+            parts.append(mpm_bagging.simulate(bag, stop - at, state=state, start=at))
+            state, at = parts[-1].state, stop
+            kept[stop] = state
+    launches, with_mass = dict(mk.LAUNCHES), dict(mk.LAUNCHES_WITH_MASS)
+    peak = torch.cuda.max_memory_allocated()
+    res = mpm_bagging.BaggingRun(
+        state=parts[-1].state, ball_z=torch.cat([p.ball_z for p in parts]),
+        impulses=torch.cat([p.impulses for p in parts]),
+        dropped=torch.cat([p.dropped for p in parts]), wall_s=sum(p.wall_s for p in parts))
+    its = torch.stack([sol.iterations for sol in log]).cpu() if log else None
+    return bag, res, kept, launches, with_mass, its, peak
+
+
+def bagging_main_path(torch, mk, gc, mpm_bagging, model, dev, card):
+    """Phase 14b (implicit) or 14d (penalty): the demo's first BAGGING_STEPS
+    steps on one world, timed by the host wall after one warm-up step, with
+    the gates: finite, no particle dropped, one K2 and one K1 from block
+    windows a substep (with the mass on the implicit branch), the sheet's
+    impulse on the ball from the first contact on pointing up, the ball's
+    height within its bound of the JAX package's.  Returns (launches, the
+    states at the steps of BAGGING_PATH_STARTS, the final state, the
+    world)."""
+    keep = BAGGING_PATH_STARTS if model == "implicit" else ()
+    bag, res, kept, launches, with_mass, its, peak = bagging_run(
+        torch, mk, gc, mpm_bagging, model, dev, keep=keep)
+    phase = "14b" if model == "implicit" else "14d"
+    tag = f"bagging {model} (phase {phase})"
+    substeps = BAGGING_STEPS * bag.world.substeps_per_step
+    p = res.state.particles
+    finite = all(bool(torch.isfinite(t).all()) for t in (res.state.rigid, p.x, p.v, p.C))
+    z = float(res.ball_z[-1])
+    z_ref, bound = BAGGING_Z_END[model], BAGGING_Z_END_BOUND[model]
+    imp = res.impulses[BAGGING_CONTACT_STEP - 1:].double().sum(dim=0).cpu()  # [tau; f]
+    dropped = int(res.dropped.max())
+    print(f"[{tag}] {BAGGING_STEPS} coupled steps x {bag.world.substeps_per_step} substeps, "
+          f"{p.x.shape[0]} vertices, one world, float32 TF32 off: "
+          f"{substeps / res.wall_s!r} substeps/s (wall {res.wall_s!r} s, "
+          f"{res.wall_s / substeps * 1e3!r} ms a substep), peak memory {peak} B "
+          f"({peak / 2**30:.3f} GiB) [{card}]")
+    print(f"[{tag}] launches {json.dumps(launches)} (with the mass "
+          f"{with_mass['update_grid_blocks']}), a substep {launches['p2g_block'] / substeps!r} "
+          f"K2 and {launches['update_grid_blocks'] / substeps!r} K1 from block windows; "
+          f"dropped max {dropped}, finite {finite} [{card}]")
+    z_contact = float(res.ball_z[BAGGING_CONTACT_STEP - 1])
+    print(f"[{tag}] ball z at step {BAGGING_CONTACT_STEP} {z_contact!r}, "
+          f"at step {BAGGING_STEPS} {z!r} (JAX package, CPU float32: {z_ref!r}; |difference| "
+          f"{abs(z - z_ref)!r} <= {bound!r}); the sheet's impulse on the ball over steps "
+          f"{BAGGING_CONTACT_STEP}-{BAGGING_STEPS}: f {imp[3:].tolist()} N s, tau "
+          f"{imp[:3].tolist()} N m s [{card}]")
+    n = substeps
+    want = {"update_grid": 0, "update_grid_blocks": n, "p2g_block": n, "g2p_block": 0}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    want_mass = n if model == "implicit" else 0
+    check(with_mass["update_grid_blocks"] == want_mass,
+          f"{tag}: {with_mass} launches with the mass, expected {want_mass}")
+    check(finite, f"{tag}: non-finite state")
+    check(dropped == 0, f"{tag}: dropped {dropped}")
+    check(float(imp[5]) > float(imp[3:5].norm()), f"{tag}: the sheet's impulse {imp[3:].tolist()} "
+          "does not point up")
+    check(abs(z - z_ref) <= bound, f"{tag}: ball z {z!r} off the JAX package's {z_ref!r}")
+    if its is not None:
+        gp = gc.GridContactParams()
+        capped = int((its >= gp.max_iterations).sum())
+        print(f"[{tag}] Newton iterations a solve over {its.numel()} solves: median "
+              f"{float(its.double().median())!r}, max {int(its.max())}, mean "
+              f"{float(its.double().mean())!r}; {capped} at the cap of {gp.max_iterations} "
+              f"[{card}]")
+    return launches, kept, res.state, bag
+
+
+def cloth_kernels(torch, cloth, mpm, mk, bag, state, card):
+    """Phase 14c's kernel part: K2 and K1 from block windows with the mass at
+    the cloth's shape (one world, 32^3, A = 256) on the sheet at `state`, held
+    against their plain versions and timed warm and cold beside their
+    bounds (K2's of its live blocks, and of every block's output beside
+    it)."""
+    config = bag.world.mpm_config
+    sheet = state.particles
+    p = cloth._to_mpm_state(config, sheet,
+                            cloth.vertex_forces(bag.world.cloth_config, sheet))
+    sort = mpm.sort_particles(config, p)
+    A = sort.starts.numel()
+    rows = sort.packed.shape[0]
+    live = int((sort.counts > 0).sum())
+    tag = f"cloth n={rows} A={A} ({live} live) grid {config.grid_size}"
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=sort.packed.device)
+    out = {"update_grid_blocks": implicit_k1_mass(torch, mpm, mk, config, p, flush, card,
+                                                  tag=f"{tag} K1 mass")}
+    p2g_args = (sort.packed, sort.starts, sort.counts, config.block_capacity)
+    kernel = lambda: mk.p2g_block_cuda(*p2g_args)  # noqa: E731
+    plain = lambda: mk.p2g_block_reference(*p2g_args)  # noqa: E731
+    err, ok, detail = kernel_parity(torch, "p2g_block", kernel, plain, bound_k2)
+    print(f"[parity {tag}] p2g_block: max|kernel - plain| = {err:.3e} ({detail}) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"p2g_block disagrees with its plain version at {tag}")
+    # The bound counts the live blocks' output only: K1 from block windows
+    # finds a node's windows among the blocks that hold particles, so the
+    # sentinel blocks' windows (236 of 256 here) are written and never read.
+    _, live_bytes = k2_live_bytes(mk, sort)
+    taken = rows - int(sort.dropped)
+    flops = taken * 27 * (2 + 2 * 13)
+    out["p2g_block"], line = time_kernel(torch, kernel, plain, flush, live_bytes, flops)
+    out["p2g_block"]["max_abs_err"] = err
+    print(f"[time {tag}] p2g_block on its {live} live blocks of {A} and 13 live channels of "
+          f"{mk.P2G_NV}: {line} [{card}]")
+    full_bytes = 4 * (rows * 28 + A * mk.P2G_NV * mk.P2G_NODES) + 2 * A * 4
+    full_ms, _ = bound_ms(full_bytes, flops)
+    print(f"[time {tag}] p2g_block with every block's whole output written: bound "
+          f"{full_ms!r} ms ({full_bytes} bytes), share of it warm "
+          f"{full_ms / out['p2g_block']['ms']:.3f} [{card}]")
+    del flush
+    return out
+
+
+def cloth_phase(torch, mpm, mk, gc, cloth, mpm_bagging, mpm_cloth_demo, dev, card, profile):
+    """Phase 14: the cloth bagging demo on the card (14a parity, 14b the
+    main path implicit, 14c kernels against plain versions over steps 60-70
+    and 160-170 and K1 and K2 at the cloth's shape, 14d the main path with
+    the penalty).  Returns (14b's launches, 14d's launches, the kernel
+    results)."""
+    bagging_parity(torch, (cloth, mpm_bagging, mpm_cloth_demo, gc), dev, card)
+    launches, kept, final, bag = bagging_main_path(torch, mk, gc, mpm_bagging, "implicit", dev,
+                                                   card)
+    for start in BAGGING_PATH_STARTS:
+        k, pl = (bagging_run(torch, mk, gc, mpm_bagging, "implicit", dev, xla_only=xla_only,
+                             state=kept[start], start=start, steps=BAGGING_PATH_STEPS)[1]
+                 for xla_only in (False, True))
+        dx = float((k.state.particles.x - pl.state.particles.x).abs().max())
+        dv = float((k.state.particles.v - pl.state.particles.v).abs().max())
+        dr = float((k.state.rigid - pl.state.rigid).abs().max())
+        bound = BAGGING_MAX_DIFF_PATHS[start]
+        ok = dx <= bound["x"] and dv <= bound["v"]
+        print(f"[bagging kernels (phase 14c)] steps {start}-{start + BAGGING_PATH_STEPS} from "
+              f"14b's state, kernel vs plain: max|dx| {dx:.3e} (<= {bound['x']:.1e}), max|dv| "
+              f"{dv:.3e} (<= {bound['v']:.1e}), max|d rigid| {dr:.3e} "
+              f"{'ok' if ok else 'FAIL'}; kernel/plain substeps/s {pl.wall_s / k.wall_s!r} "
+              f"[{card}]")
+        check(ok, f"bagging steps {start}-{start + BAGGING_PATH_STEPS}: kernel and plain "
+              "paths disagree")
+    timed = cloth_kernels(torch, cloth, mpm, mk, bag, final, card)
+    if profile:
+        tau = final.rigid.new_zeros(6)
+
+        def run():
+            with torch.no_grad():
+                bag.world.step(bag.params, final, tau)
+
+        profile_layers(torch, run, bag.world.substeps_per_step, CLOTH_LAYERS, CLOTH_TOP_LAYERS,
+                       f"bagging implicit coupled step at step {BAGGING_STEPS}", "substep",
+                       card, ("update_grid_blocks_kernel", "p2g_block_kernel", "index",
+                              "gather", "scatter"))
+    torch.cuda.empty_cache()
+    launches_penalty = bagging_main_path(torch, mk, gc, mpm_bagging, "penalty", dev, card)[0]
+    return launches, launches_penalty, timed
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -1291,7 +1635,8 @@ def main(argv) -> int:
     from drake_tpu_torch import bench
     from drake_tpu_torch.benchmarks import bench_coupled_mpc, bench_coupled_world, paddle_blob
     from drake_tpu_torch.control import mpc, mppi
-    from drake_tpu_torch.mpm import coupling, grid_contact
+    from drake_tpu_torch.examples import mpm_bagging, mpm_cloth_demo
+    from drake_tpu_torch.mpm import cloth, coupling, grid_contact
     from drake_tpu_torch.mpm import solver as mpm
     from drake_tpu_torch.ops import _build
     from drake_tpu_torch.ops import mpm_kernels as mk
@@ -1300,6 +1645,7 @@ def main(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_start = {}  # phase -> host clock at its start, for the closing line of times
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
@@ -1307,6 +1653,7 @@ def main(argv) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
 
+    phase_start["1"] = time.perf_counter()
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     lib = _build.build()
@@ -1322,6 +1669,7 @@ def main(argv) -> int:
     errs = {name: 0.0 for name in KERNELS}
     timed = {}
 
+    phase_start["2"] = time.perf_counter()
     # ---- 2. per-kernel parity ---------------------------------------------
     def parity(scale, config, state):
         tag = (f"scale={scale} n={state.x.shape[0]} A={config.max_active_blocks} "
@@ -1352,6 +1700,7 @@ def main(argv) -> int:
                 run_path(torch, mpm, path, cfg, state, WARMUP_SUBSTEPS)
     torch.cuda.synchronize()
 
+    phase_start["3"] = time.perf_counter()
     # ---- 3. main path, counted ---------------------------------------------
     mk.reset_launch_counts()
     results = {}
@@ -1404,6 +1753,7 @@ def main(argv) -> int:
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{path}: kernel and plain paths disagree")
 
+    phase_start["4"] = time.perf_counter()
     # ---- 4. kernel times ---------------------------------------------------
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     for scale, (config, state) in scales.items():
@@ -1425,10 +1775,12 @@ def main(argv) -> int:
             timed[name]["empty_launch_ms"] = empty
     del flush
 
+    phase_start["5"] = time.perf_counter()
     # ---- 5. profile (on request) --------------------------------------------
     if "--profile" in argv:
         profile_paths(torch, mpm, scales, card)
 
+    phase_start["6-8"] = time.perf_counter()
     # ---- 6-8. the MPC of bench.py ------------------------------------------
     mpc_parity(torch, bench, ilqr, dev, card)
     res, info = mpc_main_path(torch, bench, mk, dev, card)
@@ -1436,6 +1788,7 @@ def main(argv) -> int:
         mpc_profile(torch, mpc, res, info, card)
     del res, info
 
+    phase_start["9"] = time.perf_counter()
     # ---- 9. K1 and K2 over lanes, at the coupled world's shapes -------------
     coupled_timed = {"update_grid": {}, "update_grid_blocks": {}, "p2g_block": {}}
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -1471,6 +1824,7 @@ def main(argv) -> int:
     del flush
     torch.cuda.empty_cache()
 
+    phase_start["10-12"] = time.perf_counter()
     # ---- 10-12. the coupled MPM + rigid world and its MPPI (config 5) ------
     coupled_parity(torch, (paddle_blob, coupling, mppi, tree_map), dev, card)
     by_path = {"mpm substep (phase 3)": launches}
@@ -1483,16 +1837,30 @@ def main(argv) -> int:
     del res5
     torch.cuda.empty_cache()
 
+    phase_start["13"] = time.perf_counter()
     # ---- 13. the dense implicit world --------------------------------------
     (by_path["dense implicit world K=64 (phase 13)"],
      by_path["dense implicit world K=32 (phase 13)"], k1_mass) = implicit_phase(
         torch, mpm, mk, grid_contact, paddle_blob, bench_coupled_world, dev, card,
         "--profile" in argv)
     errs["update_grid_blocks"] = max(errs["update_grid_blocks"], k1_mass["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    phase_start["14"] = time.perf_counter()
+    # ---- 14. the cloth: the bagging demo -----------------------------------
+    (by_path["cloth bagging implicit (phase 14b)"],
+     by_path["cloth bagging penalty (phase 14d)"], cloth_timed) = cloth_phase(
+        torch, mpm, mk, grid_contact, cloth, mpm_bagging, mpm_cloth_demo, dev, card,
+        "--profile" in argv)
+    for name, res in cloth_timed.items():
+        errs[name] = max(errs[name], res["max_abs_err"])
     for name in ("update_grid_blocks", "p2g_block"):
         for path, counts in list(by_path.items())[1:]:
             check(counts[name] > 0, f"{name} was never launched by {path}")
 
+    ends = list(phase_start.values())[1:] + [time.perf_counter()]
+    print("[phases] seconds of host wall: " + json.dumps(
+        {name: round(end - start, 1) for (name, start), end in zip(phase_start.items(), ends)}))
     # Times at the top level are those of the larger MPM size (the last
     # timed), under "coupled" those of phase 9 by lane count; no single
     # PyTorch call computes any of these functions, so library_ms is null.
@@ -1503,7 +1871,8 @@ def main(argv) -> int:
          "launches_per_substep": per_substep[name],
          "max_abs_err": errs[name], **timed[name], "library_ms": None,
          **({"coupled": coupled_timed[name]} if name in coupled_timed else {}),
-         **({"with_mass": k1_mass} if name == "update_grid_blocks" else {})}
+         **({"with_mass": k1_mass} if name == "update_grid_blocks" else {}),
+         **({"cloth": cloth_timed[name]} if name in cloth_timed else {})}
         for name, (route, source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,21 +9,24 @@ FinalizeExternalContactForces, deformable_driver.h:210-218).
 
 Every tensor of a ``CoupledState`` may lead with the same lane axes: the
 rigid state ``(..., nq + nv)`` and the particles ``(..., n, ...)``.  The port
-carries two branches of ``step``: the explicit penalty
-(``mpm/coupling.py``) and the dense implicit grid contact
+carries three branches of ``step``: the explicit penalty
+(``mpm/coupling.py``), the dense implicit grid contact
 (``mpm/grid_contact.py``, ``contact_model="implicit"`` with
-``tiled=False``).  The tiled implicit branch, the default for "implicit"
-and so for "auto" on stiff contact, raises ``NotImplementedError``
-(ROADMAP.md, Queue 1 items 2 and 5), and so does the cloth branch (item
-6).  In both ported branches the state's ``dropped`` is the largest P2G
-count of the step's substeps (the reference keeps the last one's).
+``tiled=False``), and the codimensional cloth (``mpm/cloth.py``, with
+``cloth_config`` set: the particles are then a ``ClothState``, penalty or
+implicit by the resolved contact model, whatever ``tiled`` says, as in the
+reference).  The tiled implicit branch, the default for "implicit" and so
+for "auto" on stiff contact, raises ``NotImplementedError`` (ROADMAP.md,
+Queue 1 items 2 and 5).  In every ported branch the state's ``dropped`` is
+the largest P2G count of the step's substeps (the reference keeps the last
+one's, and its cloth state has none).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +35,7 @@ from torch.profiler import record_function
 from drake_tpu_torch.contact import plant as cplant
 from drake_tpu_torch.contact import sap
 from drake_tpu_torch.geometry.scene import CollisionScene
+from drake_tpu_torch.mpm import cloth as clothmod
 from drake_tpu_torch.mpm import coupling as cpl
 from drake_tpu_torch.mpm import grid_contact as gcmod
 from drake_tpu_torch.mpm import solver as mpm
@@ -41,10 +45,11 @@ from drake_tpu_torch.utils.device import constant
 
 
 class CoupledState(NamedTuple):
-    """The world state: rigid x = [q; v] plus the MPM particles."""
+    """The world state: rigid x = [q; v] plus the MPM particles (a cloth's
+    vertices where the world has a ``cloth_config``)."""
 
     rigid: torch.Tensor
-    particles: mpm.MpmState
+    particles: Union[mpm.MpmState, clothmod.ClothState]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,11 +75,12 @@ class CoupledWorld:
     grid_contact_params: Optional[object] = None
     contact_query_frequency: int = 1
     # With "implicit": the tile-hosted solve (not ported yet) or, False, the
-    # dense-grid solve.
+    # dense-grid solve.  The cloth branch reads neither this nor the two
+    # fields above (it builds its solve from contact_params every substep).
     tiled: bool = True
-    # A codimensional cloth in place of the particles: the cloth branch,
-    # not ported yet.
-    cloth_config: Optional[object] = None
+    # A codimensional cloth (a ClothConfig) in place of the particles: every
+    # substep applies the cloth's elastic vertex forces before P2G.
+    cloth_config: Optional[clothmod.ClothConfig] = None
 
     def resolved_contact_model(self) -> str:
         """The branch ``step`` takes: "auto" resolved as the reference does."""
@@ -114,26 +120,32 @@ class CoupledWorld:
         """One coupled step of ``time_step`` seconds: the MPM substeps
         against the current rigid poses, then the rigid SAP step with the
         accumulated impulses / h as external spatial forces."""
+        return self.step_with_impulses(params, state, tau_applied)[0]
+
+    def step_with_impulses(self, params: MultibodyParams, state: CoupledState, tau_applied):
+        """``step``, and the impulse sum of its substeps on each coupled
+        geometry, (..., n_geoms, 6) [tau; f], for a caller that reports it."""
         model = self.model
         nq = model.num_positions
         q, v = state.rigid[..., :nq], state.rigid[..., nq:]
         h = self.time_step
-        if self.cloth_config is not None:
-            raise NotImplementedError(
-                "the cloth branch of CoupledWorld.step is not ported yet "
-                "(ROADMAP.md, Queue 1 item 6)")
         contact_model = self.resolved_contact_model()
-        if contact_model == "implicit" and self.tiled:
+        if contact_model not in ("penalty", "implicit"):
+            raise ValueError(f"unknown contact_model {self.contact_model!r}")
+        if self.cloth_config is None and contact_model == "implicit" and self.tiled:
             raise NotImplementedError(
                 "the tiled implicit grid-contact branch of CoupledWorld.step is not "
                 "ported yet (ROADMAP.md, Queue 1 items 2 and 5); tiled=False takes the "
                 "dense solve; dt * sqrt(stiffness) = "
                 f"{self.mpm_config.dt * math.sqrt(self.contact_params.stiffness):.3g}")
-        if contact_model not in ("penalty", "implicit"):
-            raise ValueError(f"unknown contact_model {self.contact_model!r}")
 
         geoms = self.rigid_geoms(params, q, v)
-        if contact_model == "implicit":
+        if self.cloth_config is not None:
+            particles, impulses = clothmod.simulate_cloth(
+                self.mpm_config, self.cloth_config, state.particles, self.substeps_per_step,
+                geoms, self.contact_params, contact_model=contact_model,
+            )
+        elif contact_model == "implicit":
             particles, impulses = self._dense_implicit_substeps(state.particles, geoms)
         else:
             particles, impulses = cpl.simulate_coupled(
@@ -153,7 +165,8 @@ class CoupledWorld:
             )
             sol = sap.solve_sap(data, data.v_star, self.sap_params)
             q_next = cplant.advance_positions(model, params, q, sol.v, h)
-        return CoupledState(rigid=torch.cat([q_next, sol.v], dim=-1), particles=particles)
+        nxt = CoupledState(rigid=torch.cat([q_next, sol.v], dim=-1), particles=particles)
+        return nxt, impulses
 
     def _dense_implicit_substeps(self, particles: mpm.MpmState, geoms):
         """The substeps of the dense implicit branch: the grid contact solve

@@ -7,10 +7,11 @@ dimensions are the lanes of ``q``.  Each contact reports phi (signed
 distance), the contact point p_W, the unit normal n_W pointing from geometry
 B into geometry A, and the static body indices.
 
-This slice carries the pairs of the bench scene: box-halfspace (8 corner
-contacts) and sphere-box (1 contact).  Other pairs, hydroelastic patches,
-meshes and collision filter managers raise ``NotImplementedError`` (ROADMAP.md,
-slice 5).
+The port carries the pairs of the bench scene, box-halfspace (8 corner
+contacts) and sphere-box (1 contact), and sphere-halfspace (1 contact), the
+ball on the ground of the cloth bagging world.  Other pairs, hydroelastic
+patches, meshes and collision filter managers raise ``NotImplementedError``
+(ROADMAP.md, slice 5).
 """
 
 from __future__ import annotations
@@ -79,13 +80,14 @@ def _check_supported(ga: CollisionGeometry, gb: CollisionGeometry):
     if kinds not in _CONTACTS_PER_PAIR:
         names = "-".join(sorted(type(g.shape).__name__ for g in (ga, gb)))
         raise NotImplementedError(
-            f"no contact handler for {names} in drake_tpu_torch: this slice "
-            "carries box-halfspace and sphere-box (ROADMAP.md, slice 5)")
+            f"no contact handler for {names} in drake_tpu_torch: the port "
+            "carries box-halfspace, sphere-box and sphere-halfspace (ROADMAP.md, slice 5)")
 
 
 _CONTACTS_PER_PAIR = {
     frozenset((sh.Box, sh.HalfSpace)): 8,
     frozenset((sh.Sphere, sh.Box)): 1,
+    frozenset((sh.Sphere, sh.HalfSpace)): 1,
 }
 
 
@@ -208,6 +210,12 @@ def _pair_contacts(ga, Ra, pa, gb, Rb, pb):
 
     if isinstance(a, sh.Sphere) and isinstance(b, sh.Box):
         phi_c, n_W = sh.box_sdf_point(Rb, pb, b.size, pa)
+        phi = phi_c - a.radius
+        p_W = pa - n_W * (a.radius + 0.5 * phi)[..., None]
+        return phi[..., None], p_W[..., None, :], n_W[..., None, :]
+
+    if isinstance(a, sh.Sphere) and isinstance(b, sh.HalfSpace):
+        phi_c, n_W = sh.halfspace_sdf_point(Rb, pb, pa)
         phi = phi_c - a.radius
         p_W = pa - n_W * (a.radius + 0.5 * phi)[..., None]
         return phi[..., None], p_W[..., None, :], n_W[..., None, :]

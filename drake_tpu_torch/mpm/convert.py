@@ -1,9 +1,12 @@
-"""Conversion between the JAX package's MPM state/config (as numpy arrays and
-plain dicts) and the port's, so that both packages compute on the same state.
+"""Conversion between the JAX package's MPM and cloth states and configs (as
+numpy arrays and plain dicts) and the port's, so that both packages compute
+on the same state.
 
-The port never imports JAX: the caller turns a ``drake_tpu`` ``MpmState`` into
-numpy (``{f.name: np.asarray(getattr(s, f.name)) for f in fields(s)}``) and a
-config into a dict (``dataclasses.asdict(config)``).
+The port never imports JAX: the caller turns a ``drake_tpu`` ``MpmState`` or
+``ClothState`` into numpy (``{f.name: np.asarray(getattr(s, f.name)) for f in
+fields(s)}``) and a config into a dict (``dataclasses.asdict(config)``).  A
+``ClothConfig`` holds only scalars, so ``ClothConfig(**dict)`` takes such a
+dict as it is.
 """
 
 from __future__ import annotations
@@ -14,10 +17,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from drake_tpu_torch.mpm.cloth import ClothState
 from drake_tpu_torch.mpm.solver import MpmConfig, MpmState
 from drake_tpu_torch.utils.device import resolve_device
 
 _FLOAT_FIELDS = ("x", "v", "F", "C", "volume", "mass")
+_CLOTH_FLOAT_FIELDS = ("x", "v", "C", "mass", "Dm_inv", "area")
 
 
 def state_from_numpy(
@@ -36,6 +41,22 @@ def state_from_numpy(
         np.asarray(arrays.get("dropped", 0)), dtype=torch.int32, device=device
     )
     return MpmState(**floats, dropped=dropped)
+
+
+def cloth_state_from_numpy(
+    arrays: Mapping[str, np.ndarray], device=None, dtype: torch.dtype = None
+) -> ClothState:
+    """ClothState from numpy arrays of the JAX ``ClothState`` fields
+    (copied).  Float fields take `dtype` (default: keep the array's);
+    ``faces`` becomes int64 and ``dropped``, which the JAX state lacks, is
+    0 in every lane.  ``device=None`` is the current CUDA device."""
+    device = resolve_device(device)
+    floats = {
+        name: torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
+        for name in _CLOTH_FLOAT_FIELDS
+    }
+    faces = torch.tensor(np.asarray(arrays["faces"]), dtype=torch.int64, device=device)
+    return ClothState(**floats, faces=faces)
 
 
 def state_to_numpy(state: MpmState) -> dict:

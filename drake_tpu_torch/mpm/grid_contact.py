@@ -103,7 +103,8 @@ _LOG: Optional[List[GridContactSolution]] = None
 def solve_log():
     """Collect the ``GridContactSolution`` of every ``solve_grid_contact``
     run inside the block into the list it yields (device tensors, no host
-    sync)."""
+    sync): its iterations, residual and impulses, with ``grid_vel`` None (a
+    whole grid a solve, which would hold the device memory of a long run)."""
     global _LOG
     outer, _LOG = _LOG, []
     try:
@@ -354,7 +355,7 @@ def solve_grid_contact(
         residual=res.reshape(lanes),
     )
     if _LOG is not None:
-        _LOG.append(sol)
+        _LOG.append(sol._replace(grid_vel=None))
     return sol
 
 

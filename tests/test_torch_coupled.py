@@ -361,11 +361,10 @@ def test_auto_contact_model_picks_as_the_reference(stiffness, model):
     assert (w.mpm_config.dt * np.sqrt(stiffness) >= 1.0) == (model == "implicit")
 
 
-@pytest.mark.parametrize("change", ["implicit", "auto_stiff", "cloth"])
+@pytest.mark.parametrize("change", ["implicit", "auto_stiff"])
 def test_unported_branches_raise(change):
     """The tiled implicit branch (the default of "implicit", and so of
-    "auto" on stiff contact) and the cloth branch raise, naming their
-    ROADMAP items."""
+    "auto" on stiff contact) raises, naming its ROADMAP items."""
     import torch
 
     from drake_tpu_torch.benchmarks import paddle_blob
@@ -377,11 +376,27 @@ def test_unported_branches_raise(change):
                      "items 2 and 5"),
         "auto_stiff": (dataclasses.replace(
             w.world, contact_params=tcpl.MpmContactParams(stiffness=1e7)), "items 2 and 5"),
-        "cloth": (dataclasses.replace(w.world, cloth_config=object()), "item 6"),
     }[change]
     assert world.tiled
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {items}"):
         world.step(w.params, w.state0, torch.zeros(1, dtype=torch.float64))
+
+
+def test_cloth_branch_steps():
+    """With a cloth_config the cloth branch runs, before the tiled check
+    that the other implicit worlds meet (tests/test_torch_cloth.py holds it
+    against the JAX package)."""
+    import torch
+
+    from drake_tpu_torch.examples import mpm_bagging
+
+    bag = mpm_bagging.build("implicit", device="cpu", dtype=torch.float64)
+    world = dataclasses.replace(bag.world, substeps_per_step=1)
+    assert world.tiled and world.resolved_contact_model() == "implicit"
+    nxt = world.step(bag.params, bag.state0, torch.zeros(6, dtype=torch.float64))
+    assert bool(torch.isfinite(nxt.particles.x).all()) and bool(torch.isfinite(nxt.rigid).all())
+    assert int(nxt.particles.dropped) == 0
+    assert nxt.particles.faces is bag.state0.particles.faces
 
 
 @pytest.mark.parametrize("contact_model", ["implicit", "auto_stiff"])

@@ -70,6 +70,10 @@ PORT_MODULES = (
     "drake_tpu_torch.contact.coupled_plant",
     "drake_tpu_torch.mpm.coupling",
     "drake_tpu_torch.mpm.grid_contact",
+    "drake_tpu_torch.mpm.cloth",
+    "drake_tpu_torch.examples",
+    "drake_tpu_torch.examples.mpm_bagging",
+    "drake_tpu_torch.examples.mpm_cloth_demo",
     "drake_tpu_torch.trajopt.ilqr",
     "drake_tpu_torch.control.mpc",
     "drake_tpu_torch.control.mppi",
@@ -111,7 +115,7 @@ def test_collecting_port_tests_loads_no_torch():
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_mpm_kernels, test_torch_mpm_solver, test_torch_package, "
         "test_torch_multibody, test_torch_contact, test_torch_mpc, test_torch_coupled, "
-        "test_torch_mppi"
+        "test_torch_mppi, test_torch_grid_contact, test_torch_cloth"
     )
     loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
     assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
@@ -279,7 +283,7 @@ def _tiny_state_arrays(n=4):
 
 def _entry_points():
     """name -> callable(device) for every entry point that makes tensors."""
-    from drake_tpu_torch.mpm import convert
+    from drake_tpu_torch.mpm import cloth, convert
     from drake_tpu_torch.mpm import solver as T
     from drake_tpu_torch.utils.device import resolve_device
 
@@ -294,10 +298,25 @@ def _entry_points():
         "state_from_numpy": lambda device: convert.state_from_numpy(
             _tiny_state_arrays(), device=device
         ),
+        "make_grid_cloth": lambda device: cloth.make_grid_cloth(
+            cloth.ClothConfig(), 3, 3, device=device
+        ),
+        "cloth_state_from_numpy": lambda device: convert.cloth_state_from_numpy(
+            _tiny_cloth_arrays(), device=device
+        ),
     }
 
 
-ENTRY_POINTS = ["resolve_device", "make_particle_block", "state_from_numpy"]
+def _tiny_cloth_arrays():
+    return {
+        "x": np.zeros((3, 3)), "v": np.zeros((3, 3)), "C": np.zeros((3, 3, 3)),
+        "mass": np.ones(3), "faces": np.asarray([[0, 1, 2]], np.int32),
+        "Dm_inv": np.eye(2)[None], "area": np.ones(1),
+    }
+
+
+ENTRY_POINTS = ["resolve_device", "make_particle_block", "state_from_numpy",
+                "make_grid_cloth", "cloth_state_from_numpy"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
