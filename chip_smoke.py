@@ -2,8 +2,9 @@
 """On-card smoke run of drake_tpu_torch, the PyTorch + CUDA port: the MPM
 substep (slice 1), the batched iiwa contact-implicit MPC of bench.py (slice
 2), the coupled MPM + rigid world with its MPPI controller (slice 3,
-BASELINE config 5), that world with the dense implicit grid contact, and
-the codimensional cloth's bagging demo.
+BASELINE config 5), that world with the dense implicit grid contact, the
+codimensional cloth's bagging demo, the tile pipeline, and the world with
+the implicit grid contact on the tile pipeline (the default of "implicit").
 Run from the root of a checkout, on a machine with one
 NVIDIA GPU:
 
@@ -13,7 +14,8 @@ Phases (each prints its lines; any failure exits 1):
 
 1. build the hand-written kernels from drake_tpu_torch/ops/csrc with nvcc;
 2. hold each kernel (K1 grid update on a dense grid, K1 from K2's block
-   windows, K2 blocked P2G, K3 blocked G2P) against its plain PyTorch
+   windows, K2 blocked P2G, K3 blocked G2P, one output row per sorted row,
+   compared on the rows the blocks take) against its plain PyTorch
    version on the card, on substep inputs of the bench scene (v and F perturbed from a fixed seed so that every channel is live)
    at both sizes, and at the small size with the capacities cut: blocks that
    overflow ``block_capacity`` (counts clamped to a pmax that is no multiple
@@ -133,6 +135,42 @@ coupled step; K2 and K1 from block windows, K3 not on this path):
        ``--profile``, ``cloth.substep``, ``cloth.forces``,
        ``grid_contact.newton`` and the device timeline of one coupled step;
     d. 14b with the penalty contact, with its gates less the Newton's.
+
+Then the tile pipeline (``mpm/tiles.py``: the group's sort every
+TILED_RESORT substeps, and every substep one block sort, K2, K1 from block
+windows and K3 over the live particles):
+
+15. a. ``simulate_tiled`` on phase 3's scenes (17,576 and 132,651
+       particles, 200 substeps) with the kernels and with ``xla_only=True``:
+       substeps/s by CUDA events, launches a substep (one K2, one K1 from
+       block windows, one K3), and the gates dropped == 0, finite, free
+       fall, kernel vs plain and the tiled path vs phase 3's
+       ``mpm_substep_blocked`` within MAX_DIFF_PATHS;
+    b. the reference test's fast block (v = 3 dx/dt, two resident
+       substeps): dropped > 0, the same count by the kernels and plain;
+    c. K3 over the coupled world's 64 lanes (32^3, A = 64, pmax = 512) on
+       phase 9's state, against its plain version and against the call on
+       one lane's own sort, timed warm and cold beside its bound.
+
+Then the world of phase 13 with the implicit grid contact on the tile
+pipeline (``CoupledWorld(contact_model="implicit")``, tiled by default;
+``mpm/tiles_contact.py``), with the JAX bench's --implicit solve
+parameters:
+
+16. a. parity: one tiled coupled step of 4 lanes, float32 on the card
+       against float64 on the CPU, within TILED_PARITY, Newton iteration
+       counts at most 1 apart;
+    b. K = 64 and K = 32 rollouts of 10 coupled steps of the converged
+       solve, as 13b: substeps/s, Newton iterations, solves at the cap,
+       residuals, peak memory, the closure's nodes beside the grid's, the
+       launches (one K2, one K1 with the node mass and one K3 a substep, no
+       dense K1), with 13b's gates;
+    c. the same with the fixed-count solve (``unroll_iterations`` =
+       TILED_UNROLL), with the gates less the cap's;
+    d. at K = 64, the tiled world against phase 13's dense world and the
+       kernels against ``xla_only=True``, within TILED_MAX_DIFF; with
+       ``--profile``, ``grid_contact.newton`` and
+       ``grid_contact.line_search`` per coupled substep.
 
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -279,6 +317,11 @@ IMPLICIT_MAX_DIFF_PATHS = 1e-4
 IMPLICIT_LAYERS = ("grid_contact.substep", "grid_contact.newton", "grid_contact.line_search",
                    "coupled.sap_step")
 IMPLICIT_TOP_LAYERS = ("grid_contact.substep", "coupled.sap_step")
+# The tiled world's (phase 16): a resident substep, with or without the
+# contact, is one tiles.substep.
+TILED_LAYERS = ("tiles.substep", "grid_contact.newton", "grid_contact.line_search",
+                "coupled.sap_step")
+TILED_TOP_LAYERS = ("tiles.substep", "coupled.sap_step")
 
 # The cloth bagging world (phase 14): drake_tpu_torch.examples.mpm_bagging,
 # the full width of examples/mpm_bagging.py (22 x 22 sheet, 32^3 grid, dt
@@ -341,6 +384,37 @@ BAGGING_Z_END_BOUND = {"implicit": 1e-3, "penalty": 1e-5}
 BAGGING_MAX_DIFF_PATHS = {60: {"x": 1e-4, "v": 1e-4}, 160: {"x": 3.3e-6, "v": 9.3e-4}}
 CLOTH_LAYERS = ("cloth.substep", "cloth.forces", "grid_contact.newton", "coupled.sap_step")
 CLOTH_TOP_LAYERS = ("cloth.substep", "coupled.sap_step")
+
+# The tile pipeline (phase 15): simulate_tiled's group sort every
+# TILED_RESORT substeps (the reference bench's --resort), on phase 3's scenes;
+# K3 over the coupled world's lanes.
+TILED_RESORT = 8
+K3_LANES = 64
+# The tiled implicit world (phase 16): phase 13's world and solve on the tile
+# pipeline.  16c's fixed count: about twice the dense world's 4.2 mean
+# Newton iterations (PERF.md section 5).
+TILED_UNROLL = 8
+# Phase 16a bounds, as phase 13a's: 100x the same comparison between float32
+# and float64 on a CPU (``implicit_parity_values(..., tiled=True)`` on the CPU
+# in both types), which gave TILED_PARITY_CPU.
+TILED_PARITY_CPU = {
+    "x": 1.8e-7, "v": 1.8e-5, "F": 1.2e-6, "C": 1.5e-5, "rigid": 4.9e-7,
+    "impulses": 5.2e-5, "residual": 5.8e-5,
+}
+TILED_PARITY = {name: 100 * value for name, value in TILED_PARITY_CPU.items()}
+# Phase 16d: after the K = 64 rollout, the tiled world against the dense
+# one and the kernels against xla_only, max |difference| in the particles'
+# x, the paddle's position q, the particles' v and the paddle's velocity.
+# x and q: 1e-4, tests/test_tiles_contact.py's bound for the two solves of
+# the coupled world in float32 (and phase 13c's).  The velocities: the
+# float32 floor of this rollout, the port's tiled float32 run against its
+# float64 run on a CPU (tests/tiled_world_spread.py: 9.15e-4 in v, 4.28e-4
+# in the paddle's velocity), rounded up.  A lane's solve that stops at its
+# tolerance feels every rounding on the card, where the Newton's
+# index_add_ sums in no fixed order: the same two paths, kernels and
+# plain, read 1.648e-4, 2.47e-6 and 1.643e-4 apart in the paddle's state
+# in three runs of this script (NVIDIA H100 80GB HBM3, 700.00 W).
+TILED_MAX_DIFF = {"x": 1e-4, "q": 1e-4, "v": 1e-3, "paddle v": 5e-4}
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -523,15 +597,15 @@ def k2_live_bytes(mk, sort):
 
 def kernel_cases(torch, np, mpm, mk, config, state):
     """(name, kernel call, plain call, error bounds, bytes, operations, the
-    chain of calls the kernel replaced or None) at the substep inputs of
-    `state`, perturbed so that stress, u0 and C are all nonzero.  Bytes
-    count what the function needs of every input, read once, and every
-    output written once: K1 the momentum of the nodes with mass only
-    (k1_needed_bytes), K1 from block windows what k1_blocks_work counts, K2
-    packed columns 0:28, K3 columns 16:40 (taps, base, x, F) and every
-    block's window, those of blocks without particles too.  Operations count
-    the float32 multiplies and adds of the taken particles.  K1 and K1 from
-    block windows both take K2's plain output."""
+    chain of calls the kernel replaced or None, the output rows to compare
+    or None for all) at the substep inputs of `state`, perturbed so that
+    stress, u0 and C are all nonzero.  Bytes count what the function needs
+    of every input, read once, and every output written once: K1 the
+    momentum of the nodes with mass only (k1_needed_bytes), K1 from block
+    windows what k1_blocks_work counts, K2 packed columns 0:28, K3 what
+    k3_work counts.
+    Operations count the float32 multiplies and adds of the taken
+    particles.  K1 and K1 from block windows both take K2's plain output."""
     rng = np.random.default_rng(SEED)
     n = state.x.shape[0]
     dev = state.x.device
@@ -555,8 +629,36 @@ def kernel_cases(torch, np, mpm, mk, config, state):
     node_pos = mpm.window_node_pos(config, sort.active, torch.float32)
     vel_ext = mpm.block_velocity_windows(config, vel.movedim(0, -1), sort.active, node_pos)
     g2p_args = (sort.packed, vel_ext, sort.starts, sort.counts, pmax, dxi2, config.dt)
+    k3_bounds = bound_k3(dxi2)
 
-    def bound_k3(ref):
+    A = sort.starts.shape[0]
+    taken = n - int(sort.dropped)
+    table_bytes = 2 * A * 4  # starts and counts
+    k1_bytes = k1_needed_bytes(mass)
+    k2_bytes = 4 * (n * 28 + A * mk.P2G_NV * mk.P2G_NODES) + table_bytes
+    k3_bytes, k3_flops = k3_work(mk, taken, sort.counts)
+    k1_flops = mass.numel() * 3 * 2
+    k2_flops = taken * 27 * (2 + 2 * 13)
+    k1b_bytes, k1b_flops = k1_blocks_work(mk, sort.active, config.grid_size)
+    rows = mk.taken_rows(sort.starts, sort.counts, n, pmax)
+    return [
+        ("update_grid", lambda: mk.update_grid_cuda(*grid_args),
+         lambda: mk.update_grid_reference(*grid_args), bound_k1, k1_bytes, k1_flops, None, None),
+        ("update_grid_blocks", lambda: mk.update_grid_blocks_cuda(*blocks_args),
+         lambda: mk.update_grid_blocks_reference(*blocks_args), bound_k1_blocks, k1b_bytes,
+         k1b_flops, lambda: mpm.update_grid(config, mpm._grid_from_blocks(config, sort, win)),
+         None),
+        ("p2g_block", lambda: mk.p2g_block_cuda(*p2g_args),
+         lambda: mk.p2g_block_reference(*p2g_args), bound_k2, k2_bytes, k2_flops, None, None),
+        ("g2p_block", lambda: mk.g2p_block_cuda(*g2p_args),
+         lambda: mk.g2p_block_reference(*g2p_args), k3_bounds, k3_bytes, k3_flops, None, rows),
+    ]
+
+
+def bound_k3(dxi2):
+    """K3's bounds on |kernel - plain|, from the plain output."""
+
+    def bounds(ref):
         # C = dxi2 (sum w v n - v x) is a difference of terms of size
         # dxi2 |v| |x|: its rounding scales with that, not with |C|.
         vmax = float(ref[..., 3:6].abs().max())
@@ -566,35 +668,29 @@ def kernel_cases(torch, np, mpm, mk, config, state):
             ("C", slice(15, 24), 1e-5 * dxi2 * vmax * xmax),
         ]
 
-    A = sort.starts.shape[0]
-    taken = n - int(sort.dropped)
-    table_bytes = 2 * A * 4  # starts and counts
-    k1_bytes = k1_needed_bytes(mass)
-    k2_bytes = 4 * (n * 28 + A * mk.P2G_NV * mk.P2G_NODES) + table_bytes
-    k3_bytes = 4 * (n * (mk.PACKED_COLS - 16) + vel_ext.numel()
-                    + A * pmax * mk.G2P_OUT) + table_bytes
-    k1_flops = mass.numel() * 3 * 2
-    k2_flops = taken * 27 * (2 + 2 * 13)
-    k3_flops = taken * (27 * (2 + 2 * mk.G2P_VEL_CH) + 150)
-    k1b_bytes, k1b_flops = k1_blocks_work(mk, sort.active, config.grid_size)
-    return [
-        ("update_grid", lambda: mk.update_grid_cuda(*grid_args),
-         lambda: mk.update_grid_reference(*grid_args), bound_k1, k1_bytes, k1_flops, None),
-        ("update_grid_blocks", lambda: mk.update_grid_blocks_cuda(*blocks_args),
-         lambda: mk.update_grid_blocks_reference(*blocks_args), bound_k1_blocks, k1b_bytes,
-         k1b_flops, lambda: mpm.update_grid(config, mpm._grid_from_blocks(config, sort, win))),
-        ("p2g_block", lambda: mk.p2g_block_cuda(*p2g_args),
-         lambda: mk.p2g_block_reference(*p2g_args), bound_k2, k2_bytes, k2_flops, None),
-        ("g2p_block", lambda: mk.g2p_block_cuda(*g2p_args),
-         lambda: mk.g2p_block_reference(*g2p_args), bound_k3, k3_bytes, k3_flops, None),
-    ]
+    return bounds
 
 
-def kernel_parity(torch, name, kernel, plain, bounds):
+def k3_work(mk, taken, counts):
+    """(bytes, operations) K3 needs: packed columns 16:40 read and 24 outputs
+    written for each taken row, the window of each block that holds
+    particles (the others' windows are never read) and the block table read
+    once; 27 taps x 12 channels of multiply-adds and the update a row."""
+    live = int((counts > 0).sum())
+    nbytes = 4 * (taken * (mk.PACKED_COLS - 16 + mk.G2P_OUT)
+                  + live * mk.P2G_NODES * mk.G2P_VEL_CH) + 2 * counts.numel() * 4
+    return nbytes, taken * (27 * (2 + 2 * mk.G2P_VEL_CH) + 150)
+
+
+def kernel_parity(torch, name, kernel, plain, bounds, rows=None):
+    """(max |kernel - plain|, within the bounds, their line), on the output
+    rows `rows` (a mask) where given: K3 writes the rows its blocks take."""
     got = kernel()
     ref = plain()
     torch.cuda.synchronize()
     check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    if rows is not None:
+        got, ref = got[rows], ref[rows]
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     diff = (got - ref).abs()
     ok, parts = True, []
@@ -1168,28 +1264,30 @@ def coupled_profile(torch, bench_mpc, mppi, tree_map, res, dev, card):
         f"config5 MPC step B={CONFIG5_SCENARIOS} M={CONFIG5_SAMPLES}", "MPC step", card, named)
 
 
-def implicit_world(paddle_blob, gc, device, dtype=None, xla_only=False):
-    """(paddle_blob.PaddleBlob, world): config 5's world with the dense
-    implicit grid contact and the JAX bench's --implicit solve parameters;
+def implicit_world(paddle_blob, gc, device, dtype=None, xla_only=False, tiled=False,
+                   unroll=0):
+    """(paddle_blob.PaddleBlob, world): config 5's world with the implicit
+    grid contact, dense or (``tiled``) on the tile pipeline, and the JAX
+    bench's --implicit solve parameters (``unroll`` its --unroll);
     ``xla_only`` takes the kernels' plain versions."""
     import torch
 
     w = paddle_blob.build(device=device, dtype=dtype or torch.float32, xla_only=xla_only)
     world = dataclasses.replace(
-        w.world, contact_model="implicit", tiled=False,
+        w.world, contact_model="implicit", tiled=tiled,
         grid_contact_params=gc.GridContactParams(
             stiffness=5e4, damping=100.0, friction=0.3, max_iterations=20,
-            line_search_points=12, line_search_levels=2))
+            line_search_points=12, line_search_levels=2, unroll_iterations=unroll))
     return w, world
 
 
-def implicit_parity_values(torch, paddle_blob, gc, device, dtype):
-    """Phase 13a's quantities on `device` in `dtype`: IMPLICIT_PARITY_LANES
-    lanes (paddles at 0.345 m + 1 mm a lane, at rest; 10, 5, 15, 12 N)
-    through one dense implicit coupled step of 10 substeps.  Returns (the
-    quantities in float64 on the CPU, each solve's Newton iterations
-    (substeps, lanes))."""
-    w, world = implicit_world(paddle_blob, gc, device, dtype)
+def implicit_parity_values(torch, paddle_blob, gc, device, dtype, tiled=False):
+    """Phase 13a's (16a's with ``tiled``) quantities on `device` in `dtype`:
+    IMPLICIT_PARITY_LANES lanes (paddles at 0.345 m + 1 mm a lane, at rest;
+    10, 5, 15, 12 N) through one implicit coupled step of 10 substeps.
+    Returns (the quantities in float64 on the CPU, each solve's Newton
+    iterations (substeps, lanes))."""
+    w, world = implicit_world(paddle_blob, gc, device, dtype, tiled=tiled)
     L = IMPLICIT_PARITY_LANES
     kw = dict(dtype=dtype, device=device)
     s = paddle_blob.lanes(w.state0, L)
@@ -1206,37 +1304,43 @@ def implicit_parity_values(torch, paddle_blob, gc, device, dtype):
     return {k: v.detach().double().cpu() for k, v in out.items()}, its
 
 
-def implicit_parity(torch, paddle_blob, gc, dev, card):
-    """Phase 13a: card float32 against CPU float64, within IMPLICIT_PARITY,
-    iteration counts within IMPLICIT_PARITY_ITERATIONS."""
+def implicit_parity(torch, paddle_blob, gc, dev, card, tiled=False):
+    """Phase 13a (16a with ``tiled``): card float32 against CPU float64,
+    within IMPLICIT_PARITY (TILED_PARITY), iteration counts within
+    IMPLICIT_PARITY_ITERATIONS."""
+    tag = "tiled" if tiled else "implicit"
+    bounds, cpu = (TILED_PARITY, TILED_PARITY_CPU) if tiled else (IMPLICIT_PARITY,
+                                                                  IMPLICIT_PARITY_CPU)
     ref, its_ref = implicit_parity_values(torch, paddle_blob, gc, torch.device("cpu"),
-                                          torch.float64)
-    got, its = implicit_parity_values(torch, paddle_blob, gc, dev, torch.float32)
+                                          torch.float64, tiled)
+    got, its = implicit_parity_values(torch, paddle_blob, gc, dev, torch.float32, tiled)
     for name, (rel, scale) in coupled_parity_errors(ref, got).items():
-        bound = IMPLICIT_PARITY[name]
+        bound = bounds[name]
         ok = rel <= bound
-        print(f"[implicit parity lanes={IMPLICIT_PARITY_LANES}] {name} {tuple(ref[name].shape)}: "
+        print(f"[{tag} parity lanes={IMPLICIT_PARITY_LANES}] {name} {tuple(ref[name].shape)}: "
               f"max|f32 card - f64 cpu| / scale = {rel:.3e} (<= {bound:.1e}; scale "
-              f"{scale:.3e}; float32 on a CPU: {IMPLICIT_PARITY_CPU[name]:.1e}) "
+              f"{scale:.3e}; float32 on a CPU: {cpu[name]:.1e}) "
               f"{'ok' if ok else 'FAIL'} [{card}]")
-        check(ok, f"implicit parity: {name} off by {rel:.3e} of its scale (bound {bound:.1e})")
+        check(ok, f"{tag} parity: {name} off by {rel:.3e} of its scale (bound {bound:.1e})")
     d = int((its - its_ref).abs().max())
     ok = d <= IMPLICIT_PARITY_ITERATIONS
-    print(f"[implicit parity lanes={IMPLICIT_PARITY_LANES}] Newton iterations a solve, lanes x "
+    print(f"[{tag} parity lanes={IMPLICIT_PARITY_LANES}] Newton iterations a solve, lanes x "
           f"substeps: card {its.T.tolist()}, cpu float64 {its_ref.T.tolist()}, max |difference| "
           f"{d} (<= {IMPLICIT_PARITY_ITERATIONS}) {'ok' if ok else 'FAIL'} [{card}]")
-    check(ok, f"implicit parity: iteration counts {d} apart")
-    check(bool((its_ref > 1).any(dim=0).all()), "implicit parity: a lane never met the blob")
+    check(ok, f"{tag} parity: iteration counts {d} apart")
+    check(bool((its_ref > 1).any(dim=0).all()), f"{tag} parity: a lane never met the blob")
 
 
 def implicit_rollout(torch, mk, gc, paddle_blob, bench_world, lanes, dev, card,
-                     xla_only=False):
-    """Phase 13b (13c with ``xla_only``): `lanes` rollouts of COUPLED_HORIZON
-    dense implicit coupled steps in one call (bench_coupled_world.rollout),
-    timed after one warm-up rollout as phase 11 times its; prints the pace,
-    the Newton iterations, peak memory and the kernels, and checks the
-    gates.  Returns what phase 13 reports."""
-    w, world = implicit_world(paddle_blob, gc, dev, xla_only=xla_only)
+                     xla_only=False, tiled=False, unroll=0):
+    """Phase 13b (13c with ``xla_only``; 16b-d with ``tiled``, 16c with
+    ``unroll``): `lanes` rollouts of COUPLED_HORIZON implicit coupled steps
+    in one call (bench_coupled_world.rollout), timed after one warm-up
+    rollout as phase 11 times its; prints the pace, the Newton iterations,
+    peak memory and the kernels, and checks the gates (the fixed count's
+    less the cap's).  Returns what phase 13 or 16 reports."""
+    w, world = implicit_world(paddle_blob, gc, dev, xla_only=xla_only, tiled=tiled,
+                              unroll=unroll)
     states = paddle_blob.lanes(w.state0, lanes)
     rigid = states.rigid.clone()
     rigid[:, 0] = IMPLICIT_PADDLE_X0
@@ -1263,7 +1367,8 @@ def implicit_rollout(torch, mk, gc, paddle_blob, bench_world, lanes, dev, card,
     impulse = sum(sol.impulses for sol in log)[:, 0].double().cpu()  # (lanes, 6) on the paddle
     capped = its >= gp.max_iterations
     label = "plain" if xla_only else "kernel"
-    tag = f"implicit world {label} K={lanes}"
+    tag = (f"{'tiled' if tiled else 'implicit'} world {label} K={lanes}"
+           + (f" unroll={unroll}" if unroll else ""))
     per_lane = its.double().mean(dim=0)
     finite = all(bool(torch.isfinite(t).all()) for t in (
         out.rigid, out.particles.x, out.particles.v, out.particles.F, out.particles.C))
@@ -1278,24 +1383,43 @@ def implicit_rollout(torch, mk, gc, paddle_blob, bench_world, lanes, dev, card,
           f"max {float(per_lane.max())!r}; {int(capped.sum())} of {its.numel()} lane-substeps "
           f"at the cap of {gp.max_iterations}; largest final residual {float(res.max())!r} "
           f"(of the solves below the cap {res_conv!r}, tolerance {gp.rel_tolerance}) [{card}]")
-    print(f"[{tag}] dropped max {int(dropped.max())}, finite {finite}, peak memory {peak} B "
+    print(f"[{tag}] dropped max {int(dropped.max())} (lanes with a drop "
+          f"{int((dropped > 0).sum())}), finite {finite}, peak memory {peak} B "
           f"({peak / 2**30:.3f} GiB), launches {json.dumps(launches)} (with the mass "
           f"{with_mass['update_grid_blocks']}), a substep {launches['p2g_block'] / substeps!r} "
-          f"K2 and {launches['update_grid_blocks'] / substeps!r} K1 from block windows "
-          f"[{card}]")
+          f"K2, {launches['update_grid_blocks'] / substeps!r} K1 from block windows and "
+          f"{launches['g2p_block'] / substeps!r} K3 [{card}]")
+    if tiled:
+        # The closure at the end: its blocks of each lane beside its slots.
+        from drake_tpu_torch.mpm import tiles
+
+        cfg = world.mpm_config
+        ss = tiles.sort_to_tiles(cfg, out.particles)
+        _, firsts = tiles.closure(cfg, ss.active)
+        ext = gp.ext_capacity_factor * cfg.max_active_blocks
+        print(f"[{tag}] closure at the end: {int(firsts.sum(dim=-1).max())} blocks in the "
+              f"largest lane ({64 * int(firsts.sum(dim=-1).max())} nodes), {ext} slots "
+              f"({64 * ext} nodes a lane in the solve) beside the grid's "
+              f"{math.prod(cfg.grid_size)} nodes; the substeps' sort capacity "
+              f"{min(math.prod(cfg.grid_size) // 64, ss.capacity + 27)} blocks [{card}]")
     n = 0 if xla_only else substeps
-    want = {"update_grid": 0, "update_grid_blocks": n, "p2g_block": n, "g2p_block": 0}
+    want = {"update_grid": 0, "update_grid_blocks": n, "p2g_block": n,
+            "g2p_block": n if tiled else 0}
     check(launches == want, f"{tag}: launches {launches}, expected {want}")
     check(with_mass["update_grid_blocks"] == n, f"{tag}: {with_mass} launches with the mass")
     check(finite, f"{tag}: non-finite state")
     check(int(dropped.max()) == 0, f"{tag}: dropped {int(dropped.max())}")
     check(bool((impulse.abs().amax(dim=-1) > 0).all()), f"{tag}: a lane put no impulse on the paddle")
     check(bool((its > 1).any(dim=0).all()), f"{tag}: a lane took one Newton iteration in every substep")
-    check(res_conv <= gp.rel_tolerance, f"{tag}: a solve below the cap ended at {res_conv:.3e}")
+    if unroll:
+        check(bool((its == unroll).all()), f"{tag}: a solve took other than {unroll} iterations")
+    else:
+        check(res_conv <= gp.rel_tolerance, f"{tag}: a solve below the cap ended at {res_conv:.3e}")
     return {"world": world, "params": w.params, "final": out, "controls": us,
             "launches": launches, "substeps_per_s": lanes * substeps / wall,
             "device_s": start.elapsed_time(end) / 1e3, "peak_memory_bytes": peak,
-            "iterations_median": float(its.double().median()), "capped": int(capped.sum())}
+            "iterations_median": float(its.double().median()), "capped": int(capped.sum()),
+            "wall_s": wall}
 
 
 def implicit_k1_mass(torch, mpm, mk, config, state, flush, card, tag=None):
@@ -1384,7 +1508,186 @@ def implicit_phase(torch, mpm, mk, gc, paddle_blob, bench_world, dev, card, prof
                   f"time, {dev_ms!r} device ms and {host_ms!r} host ms a coupled substep; "
                   f"Newton iterations a substep (max over lanes): "
                   f"{float(its.max(dim=1).values.mean())!r} [{card}]")
-    return first["launches"], runs[IMPLICIT_LANES[1]]["launches"], k1_mass
+    return first["launches"], runs[IMPLICIT_LANES[1]]["launches"], k1_mass, first["final"]
+
+
+def tiled_run(torch, tiles, config, state, n):
+    """`n` substeps of ``simulate_tiled`` (the group's sort every
+    TILED_RESORT); returns (state, device ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = tiles.simulate_tiled(config, state, n, resort_every=TILED_RESORT)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def tiled_mpm_phase(torch, mpm, mk, tiles, scales, blocked, card):
+    """Phase 15a-b: ``simulate_tiled`` on phase 3's scenes with the kernels
+    and with ``xla_only``, against each other and against `blocked` (phase
+    3's ``mpm_substep_blocked`` kernel state by scale); then the fast block.
+    Returns the kernel runs' launches and the largest kernel-plain
+    difference."""
+    total = {name: 0 for name in KERNELS}
+    t = SUBSTEPS * next(iter(scales.values()))[0].dt
+    diff = 0.0
+    for scale, (config, state) in scales.items():
+        n = state.x.shape[0]
+        plain_cfg = dataclasses.replace(config, xla_only=True)
+        for cfg in (config, plain_cfg):
+            tiled_run(torch, tiles, cfg, state, WARMUP_SUBSTEPS)
+        mk.reset_launch_counts()
+        out_k, ms_k = tiled_run(torch, tiles, config, state, SUBSTEPS)
+        launched = dict(mk.LAUNCHES)
+        out_p, ms_p = tiled_run(torch, tiles, plain_cfg, state, SUBSTEPS)
+        check(dict(mk.LAUNCHES) == launched, "the plain tiled path launched a kernel")
+        want = {"update_grid": 0, "update_grid_blocks": SUBSTEPS, "p2g_block": SUBSTEPS,
+                "g2p_block": SUBSTEPS}
+        check(launched == want, f"tiled launches {launched}, expected {want}")
+        for name in KERNELS:
+            total[name] += launched[name]
+        for label, out, ms in (("kernel", out_k, ms_k), ("plain", out_p, ms_p)):
+            dropped = int(out.dropped)
+            finite = all(bool(torch.isfinite(f).all()) for f in (out.x, out.v, out.F, out.C))
+            vz = float(out.v[:, 2].double().mean())
+            rel = abs(vz - (-9.81 * t)) / (9.81 * t)
+            print(f"[tiled scale={scale} n={n}] {label}: {SUBSTEPS} substeps, the group's sort "
+                  f"every {TILED_RESORT}, dropped={dropped}, finite={finite}, mean v_z={vz!r} "
+                  f"(-g t={-9.81 * t!r}, rel {rel:.2e}), {SUBSTEPS / (ms / 1e3)!r} substeps/s "
+                  f"({ms / SUBSTEPS!r} ms/substep by CUDA events)"
+                  + (f", launches a substep {json.dumps({k: v / SUBSTEPS for k, v in launched.items()})}"
+                     if label == "kernel" else "") + f" [{card}]")
+            check(dropped == 0, f"tiled {label} dropped {dropped} particles")
+            check(finite, f"tiled {label}: non-finite state")
+            check(rel <= FREE_FALL_RTOL, f"tiled {label}: free fall off by {rel:.2e}")
+        for other, ref in (("plain", out_p), ("mpm_substep_blocked", blocked[scale])):
+            dx_max = float((out_k.x - ref.x).abs().max())
+            dv_max = float((out_k.v - ref.v).abs().max())
+            ok = max(dx_max, dv_max) <= MAX_DIFF_PATHS
+            if other == "plain":
+                diff = max(diff, dx_max, dv_max)
+            print(f"[tiled scale={scale} n={n}] kernel vs {other}: max|dx| {dx_max:.3e}, "
+                  f"max|dv| {dv_max:.3e} (<= {MAX_DIFF_PATHS:.0e}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"tiled scale {scale}: the kernels and {other} disagree")
+    # 15b: the reference test's fast block, 3 cells a substep: the second
+    # resident substep finds particles past their home's window.
+    config, state = scales[1]
+    fast = state.replace(v=torch.full_like(state.v, 3.0 * config.dx / config.dt))
+    counts = {}
+    for label, cfg in (("kernel", config), ("plain", dataclasses.replace(config, xla_only=True))):
+        ss = tiles.sort_to_tiles(cfg, fast)
+        ss = tiles.resident_substep(cfg, tiles.resident_substep(cfg, ss))
+        counts[label] = int(ss.dropped)
+    ok = counts["kernel"] == counts["plain"] > 0
+    print(f"[tiled fast block] v = 3 dx/dt, two resident substeps: dropped (stale) kernel "
+          f"{counts['kernel']}, plain {counts['plain']} of {state.x.shape[0]} "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"tiled fast block: stale counts {counts}")
+    return total, diff
+
+
+def k3_lanes(torch, np, mpm, mk, tree_map, paddle_blob, dev, card):
+    """Phase 15c: K3 over K3_LANES lanes of the coupled world (phase 9's
+    state), its windows from the plain K2 and K1: against its plain version
+    and, on three lanes, against the call on the lane's own sort; timed warm
+    and cold beside its bound.  Returns the timing and the difference."""
+    config, state = coupled_inputs(torch, np, paddle_blob, K3_LANES, dev)
+    pmax = config.block_capacity
+    dxi2 = 4.0 / config.dx**2
+    sort = mpm.sort_particles(config, state)
+    win = mk.p2g_block_reference(sort.packed, sort.starts, sort.counts, pmax)
+    vel = mk.update_grid_blocks_reference(win, sort.active, config.grid_size, config.dx,
+                                          config.dt, config.gravity, config.wall_width)
+    node_pos = mpm.window_node_pos(config, sort.active, torch.float32)
+    vel_ext = mpm.block_velocity_windows(config, vel, sort.active, node_pos)
+    args = (sort.packed, vel_ext, sort.starts, sort.counts, pmax, dxi2, config.dt)
+    rows = sort.packed.shape[0]
+    taken = mk.taken_rows(sort.starts, sort.counts, rows, pmax)
+    kernel = lambda: mk.g2p_block_cuda(*args)  # noqa: E731
+    plain = lambda: mk.g2p_block_reference(*args)  # noqa: E731
+    bounds = bound_k3(dxi2)
+    tag = (f"K3 lanes L={K3_LANES} grid {config.grid_size} A={config.max_active_blocks} "
+           f"pmax={pmax} rows={rows} taken={int(taken.sum())}")
+    check(int(sort.dropped.sum()) == 0, f"{tag}: the coupled scene dropped particles")
+    err, ok, detail = kernel_parity(torch, "g2p_block", kernel, plain, bounds, taken)
+    print(f"[parity {tag}] g2p_block: max|kernel - plain| = {err:.3e} ({detail}) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"g2p_block disagrees with its plain version at {tag}")
+    out = kernel()
+    lanes, n = state.x.shape[:2]
+    for lane in sorted({0, lanes // 2, lanes - 1}):
+        one = mpm.sort_particles(config, tree_map(lambda t: t[lane], state))
+        out_l = mk.g2p_block_cuda(one.packed, vel_ext[lane].contiguous(), one.starts,
+                                  one.counts, pmax, dxi2, config.dt)
+        mine = mk.taken_rows(one.starts, one.counts, n, pmax)
+        batched = out[lane * n:(lane + 1) * n]
+        check(torch.equal(mine, taken[lane * n:(lane + 1) * n]),
+              f"g2p_block: lane {lane}'s taken rows differ from its own sort's")
+        e = float((out_l[mine] - batched[mine]).abs().max())
+        bound = min(b for _, _, b in bounds(batched[mine]))
+        print(f"[lanes L={lanes}] lane {lane}: g2p_block max|batched - own| = {e:.3e} "
+              f"(<= {bound:.3e}) {'ok' if e <= bound else 'FAIL'} [{card}]")
+        check(e <= bound, f"g2p_block: lane {lane} differs from its own call")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    nbytes, flops = k3_work(mk, int(taken.sum()), sort.counts)
+    res, line = time_kernel(torch, kernel, plain, flush, nbytes, flops)
+    res["max_abs_err"] = err
+    print(f"[time {tag}] g2p_block: {line} [{card}]")
+    del flush
+    return res
+
+
+def tiled_world_phase(torch, mk, gc, paddle_blob, bench_world, dense_final, dev, card, profile):
+    """Phase 16: the implicit world on the tile pipeline (16a parity, 16b the
+    converged rollouts at IMPLICIT_LANES, 16c the fixed-count ones, 16d the
+    tiled world against phase 13's dense one, `dense_final`, and the kernels
+    against plain).  Returns each rollout's launches by its label."""
+    implicit_parity(torch, paddle_blob, gc, dev, card, tiled=True)
+    runs = {}
+    for unroll in (0, TILED_UNROLL):
+        for lanes in IMPLICIT_LANES:
+            runs[(unroll, lanes)] = implicit_rollout(torch, mk, gc, paddle_blob, bench_world,
+                                                     lanes, dev, card, tiled=True, unroll=unroll)
+            torch.cuda.empty_cache()
+    first = runs[(0, IMPLICIT_LANES[0])]
+    plain = implicit_rollout(torch, mk, gc, paddle_blob, bench_world, IMPLICIT_LANES[0], dev,
+                             card, xla_only=True, tiled=True)
+    k, p = first["final"], plain["final"]
+    for other, ref in (("plain", p), ("the dense world (phase 13)", dense_final)):
+        diff = {"x": k.particles.x - ref.particles.x, "q": k.rigid[:, 0] - ref.rigid[:, 0],
+                "v": k.particles.v - ref.particles.v,
+                "paddle v": k.rigid[:, 1] - ref.rigid[:, 1]}
+        diff = {name: float(d.abs().max()) for name, d in diff.items()}
+        ok = all(diff[name] <= bound for name, bound in TILED_MAX_DIFF.items())
+        print(f"[tiled world] kernel vs {other} after the K={IMPLICIT_LANES[0]} rollout: "
+              + ", ".join(f"max|d {name}| {diff[name]:.3e} (<= {bound:.0e})"
+                          for name, bound in TILED_MAX_DIFF.items())
+              + f" {'ok' if ok else 'FAIL'} [{card}]")
+        check(ok, f"tiled world: the kernels and {other} disagree")
+    if profile:
+        world, u = first["world"], first["controls"][:, -1]
+        logs = []
+
+        def run():
+            with gc.solve_log() as log:
+                world.step(first["params"], k, u)
+            logs.append(log)
+
+        prof = profile_layers(torch, run, world.substeps_per_step, TILED_LAYERS,
+                              TILED_TOP_LAYERS, f"tiled coupled step L={IMPLICIT_LANES[0]}",
+                              "coupled substep", card,
+                              ("update_grid_blocks_kernel", "p2g_block_kernel",
+                               "g2p_block_kernel", "index", "gather", "scatter"))
+        its = torch.stack([sol.iterations for sol in logs[-1]]).double()
+        for layer in ("grid_contact.newton", "grid_contact.line_search"):
+            dev_ms, host_ms = prof["layers"][layer]
+            print(f"[profile tiled] {layer}: {dev_ms / prof['device_ms']:.3f} of the device "
+                  f"time, {dev_ms!r} device ms and {host_ms!r} host ms a coupled substep; "
+                  f"Newton iterations a substep (max over lanes): "
+                  f"{float(its.max(dim=1).values.mean())!r} [{card}]")
+    return {f"tiled implicit world K={lanes}" + (f" unroll={u}" if u else "") + " (phase 16)":
+            r["launches"] for (u, lanes), r in runs.items()}
 
 
 def bagging_parity_values(torch, cloth, mpm_bagging, mpm_cloth_demo, gc, device, dtype):
@@ -1636,7 +1939,7 @@ def main(argv) -> int:
     from drake_tpu_torch.benchmarks import bench_coupled_mpc, bench_coupled_world, paddle_blob
     from drake_tpu_torch.control import mpc, mppi
     from drake_tpu_torch.examples import mpm_bagging, mpm_cloth_demo
-    from drake_tpu_torch.mpm import cloth, coupling, grid_contact
+    from drake_tpu_torch.mpm import cloth, coupling, grid_contact, tiles
     from drake_tpu_torch.mpm import solver as mpm
     from drake_tpu_torch.ops import _build
     from drake_tpu_torch.ops import mpm_kernels as mk
@@ -1675,10 +1978,10 @@ def main(argv) -> int:
         tag = (f"scale={scale} n={state.x.shape[0]} A={config.max_active_blocks} "
                f"pmax={config.block_capacity}")
         dropped = int(mpm.sort_particles(config, state).dropped)
-        for name, kernel, plain, bounds, _, _, _ in kernel_cases(
+        for name, kernel, plain, bounds, _, _, _, rows in kernel_cases(
                 torch, np, mpm, mk, config, state):
             # kernel_parity synchronises: a fault shows at the kernel at fault.
-            err, ok, detail = kernel_parity(torch, name, kernel, plain, bounds)
+            err, ok, detail = kernel_parity(torch, name, kernel, plain, bounds, rows)
             errs[name] = max(errs[name], err)
             print(f"[parity {tag} dropped={dropped}] {name}: max|kernel - plain| "
                   f"= {err:.3e} ({detail}) {'ok' if ok else 'FAIL'}")
@@ -1758,7 +2061,7 @@ def main(argv) -> int:
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     for scale, (config, state) in scales.items():
         n = state.x.shape[0]
-        for name, kernel, plain, _, nbytes, flops, chain in kernel_cases(
+        for name, kernel, plain, _, nbytes, flops, chain, _ in kernel_cases(
                 torch, np, mpm, mk, config, state):
             timed[name], line = time_kernel(torch, kernel, plain, flush, nbytes, flops, chain)
             print(f"[time scale={scale} n={n}] {name}: {line} [{card}]")
@@ -1840,7 +2143,7 @@ def main(argv) -> int:
     phase_start["13"] = time.perf_counter()
     # ---- 13. the dense implicit world --------------------------------------
     (by_path["dense implicit world K=64 (phase 13)"],
-     by_path["dense implicit world K=32 (phase 13)"], k1_mass) = implicit_phase(
+     by_path["dense implicit world K=32 (phase 13)"], k1_mass, dense_final) = implicit_phase(
         torch, mpm, mk, grid_contact, paddle_blob, bench_coupled_world, dev, card,
         "--profile" in argv)
     errs["update_grid_blocks"] = max(errs["update_grid_blocks"], k1_mass["max_abs_err"])
@@ -1854,16 +2157,40 @@ def main(argv) -> int:
         "--profile" in argv)
     for name, res in cloth_timed.items():
         errs[name] = max(errs[name], res["max_abs_err"])
+
+    phase_start["15"] = time.perf_counter()
+    # ---- 15. the tile pipeline ---------------------------------------------
+    blocked = {scale: results[(scale, "blocked")][0] for scale in scales}
+    by_path["tiled MPM (phase 15)"], tiled_err = tiled_mpm_phase(
+        torch, mpm, mk, tiles, scales, blocked, card)
+    errs["g2p_block"] = max(errs["g2p_block"], tiled_err)
+    for name in KERNELS:
+        per_substep[name]["tiled"] = by_path["tiled MPM (phase 15)"][name] / (
+            len(scales) * SUBSTEPS)
+    del blocked, results
+    k3_timed = k3_lanes(torch, np, mpm, mk, tree_map, paddle_blob, dev, card)
+    errs["g2p_block"] = max(errs["g2p_block"], k3_timed["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    phase_start["16"] = time.perf_counter()
+    # ---- 16. the implicit world on the tile pipeline ------------------------
+    by_path.update(tiled_world_phase(torch, mk, grid_contact, paddle_blob, bench_coupled_world,
+                                     dense_final, dev, card, "--profile" in argv))
+    del dense_final
     for name in ("update_grid_blocks", "p2g_block"):
         for path, counts in list(by_path.items())[1:]:
             check(counts[name] > 0, f"{name} was never launched by {path}")
+    for path, counts in by_path.items():
+        if "tiled" in path:
+            check(counts["g2p_block"] > 0, f"g2p_block was never launched by {path}")
 
     ends = list(phase_start.values())[1:] + [time.perf_counter()]
     print("[phases] seconds of host wall: " + json.dumps(
         {name: round(end - start, 1) for (name, start), end in zip(phase_start.items(), ends)}))
     # Times at the top level are those of the larger MPM size (the last
-    # timed), under "coupled" those of phase 9 by lane count; no single
-    # PyTorch call computes any of these functions, so library_ms is null.
+    # timed), under "coupled" those of phase 9 by lane count, K3's under
+    # "lanes" those of phase 15c; no single PyTorch call computes any of
+    # these functions, so library_ms is null.
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(counts[name] for counts in by_path.values()),
@@ -1872,6 +2199,7 @@ def main(argv) -> int:
          "max_abs_err": errs[name], **timed[name], "library_ms": None,
          **({"coupled": coupled_timed[name]} if name in coupled_timed else {}),
          **({"with_mass": k1_mass} if name == "update_grid_blocks" else {}),
+         **({"lanes": k3_timed} if name == "g2p_block" else {}),
          **({"cloth": cloth_timed[name]} if name in cloth_timed else {})}
         for name, (route, source, replaces) in KERNELS.items()
     ]}))

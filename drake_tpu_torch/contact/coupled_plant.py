@@ -9,17 +9,19 @@ FinalizeExternalContactForces, deformable_driver.h:210-218).
 
 Every tensor of a ``CoupledState`` may lead with the same lane axes: the
 rigid state ``(..., nq + nv)`` and the particles ``(..., n, ...)``.  The port
-carries three branches of ``step``: the explicit penalty
-(``mpm/coupling.py``), the dense implicit grid contact
-(``mpm/grid_contact.py``, ``contact_model="implicit"`` with
-``tiled=False``), and the codimensional cloth (``mpm/cloth.py``, with
-``cloth_config`` set: the particles are then a ``ClothState``, penalty or
-implicit by the resolved contact model, whatever ``tiled`` says, as in the
-reference).  The tiled implicit branch, the default for "implicit" and so
-for "auto" on stiff contact, raises ``NotImplementedError`` (ROADMAP.md,
-Queue 1 items 2 and 5).  In every ported branch the state's ``dropped`` is
-the largest P2G count of the step's substeps (the reference keeps the last
-one's, and its cloth state has none).
+carries every branch of ``step``: the explicit penalty
+(``mpm/coupling.py``); the implicit grid contact on the tile pipeline
+(``mpm/tiles_contact.py``, ``contact_model="implicit"`` with the default
+``tiled=True``, and so "auto" on stiff contact): one group sort at the
+start of the step, then resident substeps; the dense implicit grid contact
+(``mpm/grid_contact.py``, ``tiled=False``); and the codimensional cloth
+(``mpm/cloth.py``, with ``cloth_config`` set: the particles are then a
+``ClothState``, penalty or implicit by the resolved contact model, whatever
+``tiled`` says, as in the reference).  The tiled branch's ``dropped`` is the
+reference's, the sum of the step's drops (held-out particles once, stale
+ones in every substep, the closure's and the contact rows' overflow); in
+the other branches it is the largest P2G count of the step's substeps (the
+reference keeps the last one's, and its cloth state has none).
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from drake_tpu_torch.mpm import cloth as clothmod
 from drake_tpu_torch.mpm import coupling as cpl
 from drake_tpu_torch.mpm import grid_contact as gcmod
 from drake_tpu_torch.mpm import solver as mpm
+from drake_tpu_torch.mpm import tiles
+from drake_tpu_torch.mpm import tiles_contact as tcmod
 from drake_tpu_torch.multibody import kinematics as kin
 from drake_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
 from drake_tpu_torch.utils.device import constant
@@ -74,7 +78,7 @@ class CoupledWorld:
     # contact_query_frequency substeps (the others take no contact).
     grid_contact_params: Optional[object] = None
     contact_query_frequency: int = 1
-    # With "implicit": the tile-hosted solve (not ported yet) or, False, the
+    # With "implicit": the solve on the tile pipeline or, False, the
     # dense-grid solve.  The cloth branch reads neither this nor the two
     # fields above (it builds its solve from contact_params every substep).
     tiled: bool = True
@@ -132,12 +136,6 @@ class CoupledWorld:
         contact_model = self.resolved_contact_model()
         if contact_model not in ("penalty", "implicit"):
             raise ValueError(f"unknown contact_model {self.contact_model!r}")
-        if self.cloth_config is None and contact_model == "implicit" and self.tiled:
-            raise NotImplementedError(
-                "the tiled implicit grid-contact branch of CoupledWorld.step is not "
-                "ported yet (ROADMAP.md, Queue 1 items 2 and 5); tiled=False takes the "
-                "dense solve; dt * sqrt(stiffness) = "
-                f"{self.mpm_config.dt * math.sqrt(self.contact_params.stiffness):.3g}")
 
         geoms = self.rigid_geoms(params, q, v)
         if self.cloth_config is not None:
@@ -145,6 +143,8 @@ class CoupledWorld:
                 self.mpm_config, self.cloth_config, state.particles, self.substeps_per_step,
                 geoms, self.contact_params, contact_model=contact_model,
             )
+        elif contact_model == "implicit" and self.tiled:
+            particles, impulses = self._tiled_implicit_substeps(state.particles, geoms)
         elif contact_model == "implicit":
             particles, impulses = self._dense_implicit_substeps(state.particles, geoms)
         else:
@@ -168,17 +168,41 @@ class CoupledWorld:
         nxt = CoupledState(rigid=torch.cat([q_next, sol.v], dim=-1), particles=particles)
         return nxt, impulses
 
+    def _grid_contact_params(self) -> gcmod.GridContactParams:
+        """``grid_contact_params``, or the parameters built from
+        ``contact_params`` as the reference builds them."""
+        if self.grid_contact_params is not None:
+            return self.grid_contact_params
+        cp = self.contact_params
+        return gcmod.GridContactParams(
+            stiffness=cp.stiffness, damping=cp.damping, friction=cp.friction,
+            slip_velocity=cp.slip_velocity,
+        )
+
+    def _tiled_implicit_substeps(self, particles: mpm.MpmState, geoms):
+        """The substeps of the tiled implicit branch
+        (drake_tpu/contact/coupled_plant.py:155-199): one group sort, then
+        resident substeps, the contact solve on the closure on substeps k
+        with k % contact_query_frequency == 0 and the free one on the
+        others.  Returns (particles with the step's summed ``dropped``,
+        impulse sum (..., n_geoms, 6))."""
+        gc_params = self._grid_contact_params()
+        freq = max(1, self.contact_query_frequency)
+        acc = particles.v.new_zeros(particles.x.shape[:-2] + (len(geoms), 6))
+        ss = tiles.sort_to_tiles(self.mpm_config, particles)
+        for k in range(self.substeps_per_step):
+            if k % freq == 0:
+                ss, imp = tcmod.resident_substep_contact(self.mpm_config, gc_params, ss, geoms)
+                acc = acc + imp
+            else:
+                ss = tiles.resident_substep(self.mpm_config, ss)
+        return tiles.tiles_to_state(ss, particles), acc
+
     def _dense_implicit_substeps(self, particles: mpm.MpmState, geoms):
         """The substeps of the dense implicit branch: the grid contact solve
         on substeps k with k % contact_query_frequency == 0, free transfers
         on the others.  Returns (particles, impulse sum (..., n_geoms, 6))."""
-        cp = self.contact_params
-        gc_params = self.grid_contact_params
-        if gc_params is None:
-            gc_params = gcmod.GridContactParams(
-                stiffness=cp.stiffness, damping=cp.damping, friction=cp.friction,
-                slip_velocity=cp.slip_velocity,
-            )
+        gc_params = self._grid_contact_params()
         freq = max(1, self.contact_query_frequency)
         acc = particles.v.new_zeros(particles.x.shape[:-2] + (len(geoms), 6))
         dropped = particles.dropped

@@ -39,7 +39,10 @@ reference, by design:
 
 No gradient flows through the solve (nothing differentiates it in the
 reference either).  ``solve_log`` collects each solve's iterations,
-residual and impulses for a caller that reports them.
+residual and impulses for a caller that reports them.  The Newton
+(``newton``) and the impulses (``impulses``) take any node set and its
+stencil: the dense grid here, the closure of the active blocks in
+``mpm/tiles_contact.py``.
 """
 
 from __future__ import annotations
@@ -69,8 +72,8 @@ class GridContactParams:
     """Mirror of MpmConfigParams' contact block and the solver's knobs (the
     reference's fields and defaults).  ``line_search_levels``,
     ``ext_capacity_factor``, ``unroll_iterations`` and ``max_contact_rows``
-    configure the tile-hosted solve (ROADMAP.md, Queue 1 item 5); the dense
-    solve reads none of them, as in the reference."""
+    configure the solve on the tile pipeline (``mpm/tiles_contact.py``); the
+    dense solve reads none of them, as in the reference."""
 
     stiffness: float = 1e5  # normal penalty k [N/m]
     damping: float = 10.0  # normal rate damping d [N s/m]
@@ -113,19 +116,22 @@ def solve_log():
         _LOG = outer
 
 
-def _pair_quantities(state: mpm.MpmState, geoms: Sequence[RigidGeom]):
-    """Per (geometry, particle): phi0 (..., G, n), the outward normal and
-    the rigid surface velocity (..., G, n, 3)."""
-    x = state.x
+def pair_quantities(x, geoms: Sequence[RigidGeom], lanes):
+    """Per (geometry, row) of x (L, rows, 3): phi0 (L, G, rows), the outward
+    normal and the rigid surface velocity (L, G, rows, 3); each geometry's
+    pose and velocity lead with `lanes` (L = their product)."""
+    L, rows = x.shape[:2]
+    xl = x.reshape(lanes + (rows, 3))
     phis, ns, vgs = [], [], []
     for geom in geoms:
-        phi, n = _particle_sdf(geom, x)
-        w = geom.V_WB[..., None, :3].expand(x.shape)
+        phi, n = _particle_sdf(geom, xl)
+        w = geom.V_WB[..., None, :3].expand(xl.shape)
         vo = geom.V_WB[..., None, 3:]
-        phis.append(phi)
-        ns.append(n.expand(x.shape))  # the halfspace's normal is one per lane
-        vgs.append(vo + torch.linalg.cross(w, x - geom.p_WB[..., None, :], dim=-1))
-    return torch.stack(phis, dim=-2), torch.stack(ns, dim=-3), torch.stack(vgs, dim=-3)
+        phis.append(phi.reshape(L, rows))
+        ns.append(n.expand(xl.shape).reshape(L, rows, 3))  # a halfspace's normal is one per lane
+        vgs.append((vo + torch.linalg.cross(w, xl - geom.p_WB[..., None, :], dim=-1))
+                   .reshape(L, rows, 3))
+    return torch.stack(phis, dim=1), torch.stack(ns, dim=1), torch.stack(vgs, dim=1)
 
 
 def _grad_and_force(p: GridContactParams, dt, phi0, n, v_rel, active):
@@ -239,9 +245,7 @@ def solve_grid_contact(
     free-motion grid after the grid update.  Returns the post-contact grid
     velocities and each geometry's accumulated spatial impulse on its body
     (apply_contact_impulse_to_rigid_bodies role)."""
-    dt = config.dt
     nx, ny, nz = config.grid_size
-    dtype = grid_vel.dtype
     dev = grid_vel.device
     lanes = state.x.shape[:-2]
     L = math.prod(lanes)
@@ -255,13 +259,9 @@ def solve_grid_contact(
             residual=grid_vel.new_zeros(lanes),
         )
 
-    phi0, n_pg, v_g = _pair_quantities(state, geoms)
-    phi0 = phi0.reshape(L, G, n_p)
-    n_pg = n_pg.reshape(L, G, n_p, 3)
-    v_g = v_g.reshape(L, G, n_p, 3)
-    active0 = phi0 < params.margin  # candidate pairs (static shape, masked)
-    st = _stencil(config, state.x.reshape(L, n_p, 3))
-
+    x = state.x.reshape(L, n_p, 3)
+    phi0, n_pg, v_g = pair_quantities(x, geoms, lanes)
+    st = _stencil(config, x)
     # Domain-wall nodes stay pinned (their direction is zeroed).
     ww = config.wall_width
     ii = torch.arange(nx, device=dev)[:, None, None]
@@ -272,15 +272,47 @@ def solve_grid_contact(
         & (jj >= ww) & (jj < ny - ww)
         & (kk >= ww) & (kk < nz - ww)
     ).reshape(-1)
-    m_flat = grid_mass.reshape(L, st.nodes)
-    movable = (inside & (m_flat > 0)).to(dtype)[..., None]  # (L, nodes, 1)
+    v, it, res = newton(
+        params, config.dt, st, grid_mass.reshape(L, st.nodes), grid_vel.reshape(L, st.nodes, 3),
+        inside, phi0, n_pg, v_g, phi0 < params.margin,
+    )
+    sol = GridContactSolution(
+        grid_vel=v.reshape(grid_vel.shape),
+        impulses=impulses(params, config.dt, st, v, phi0, n_pg, v_g, phi0 < params.margin, x,
+                          geoms, lanes),
+        iterations=it.reshape(lanes),
+        residual=res.reshape(lanes),
+    )
+    if _LOG is not None:
+        _LOG.append(sol._replace(grid_vel=None))
+    return sol
+
+
+def newton(params: GridContactParams, dt, st: _Stencil, mass, v_star, inside, phi0, n_pg,
+           v_g, active0, line_search_levels: int = 2, unroll_iterations: int = 0):
+    """The block-Jacobi Newton of every lane on a node set: mass (L, nodes),
+    v_star (L, nodes, 3), ``inside`` (nodes,) or (L, nodes) the nodes off the
+    walls, the pairs' phi0 (L, G, rows), normals and rigid velocities
+    (L, G, rows, 3) and candidate mask ``active0``, ``st`` the rows' taps
+    into the node set.  Returns (v (L, nodes, 3), iterations (L,) int32,
+    residual (L,)).
+
+    The converged loop (``unroll_iterations == 0``) masks each lane whose
+    own condition fails, as ``vmap`` of ``lax.while_loop`` does; on the card
+    it asks the host after the first iteration and every ``_CHECK_EVERY``.
+    ``unroll_iterations = N > 0`` runs exactly N iterations of every lane
+    and asks the host nothing.  ``line_search_levels`` 1 takes one bracket
+    level before the secant, 2 two."""
+    dtype = v_star.dtype
+    dev = v_star.device
+    L = v_star.shape[0]
+    movable = (inside & (mass > 0)).to(dtype)[..., None]  # (L, nodes, 1)
     n_dofs = torch.clamp_min(movable.sum(dim=(-2, -1)), 1.0)
     # + m_i I in every node's block; empty nodes get I so that the
     # closed-form inverse stays finite (their direction is zeroed anyway).
-    m_eye = torch.where(m_flat > 0, m_flat, 1.0)[..., None, None] * device_constant(
+    m_eye = torch.where(mass > 0, mass, 1.0)[..., None, None] * device_constant(
         _EYE, dtype, dev)
-    mass3 = m_flat[..., None]
-    v_star = grid_vel.reshape(L, st.nodes, 3)
+    mass3 = mass[..., None]
     K = params.line_search_points
     lin = _line_grid(K, dtype, dev)
     amax = torch.full((L,), params.alpha_max, dtype=dtype, device=dev)
@@ -290,7 +322,7 @@ def solve_grid_contact(
         """dE/dalpha at alphas (L, K): the grid's quadratic part and the
         pairs' gradient dotted with the direction at the particles."""
         vr = (vp0[:, None] + alphas[..., None, None] * dvp[:, None])[:, :, None]
-        vr = vr - v_g[:, None]  # (L, K, G, n, 3)
+        vr = vr - v_g[:, None]  # (L, K, G, rows, 3)
         g_a = _contact_grad(params, dt, phi0[:, None], n_pg[:, None], vr, active0[:, None])
         return a0[:, None] + alphas * a1[:, None] + torch.einsum("lkgni,lni->lk", g_a, dvp)
 
@@ -305,11 +337,11 @@ def solve_grid_contact(
 
     def step(v):
         """One Newton iteration of every lane: (v_new, residual)."""
-        vp = _gather(st, v)  # (L, n, 3)
+        vp = _gather(st, v)  # (L, rows, 3)
         g, H, _ = _contact_grad_hess(params, dt, phi0, n_pg, vp[:, None] - v_g, active0)
         dv = v - v_star
         grid_g = mass3 * dv + _scatter(st, st.weight, g.sum(dim=1))
-        grid_H = _scatter(st, st.weight_sq, H.sum(dim=1).reshape(L, n_p, 9))
+        grid_H = _scatter(st, st.weight_sq, H.sum(dim=1).reshape(L, -1, 9))
         grid_H = grid_H.reshape(L, st.nodes, 3, 3) + m_eye
         dirn = -params.relax * torch.sum(mpm._inv3(grid_H) * grid_g[..., None, :], dim=-1)
         dirn = dirn * movable
@@ -317,46 +349,51 @@ def solve_grid_contact(
         with record_function("grid_contact.line_search"):
             args = (vp, _gather(st, dirn), torch.sum(dirn * (mass3 * dv), dim=(-2, -1)),
                     torch.sum(dirn * (mass3 * dirn), dim=(-2, -1)))
-            lo1, hi1, _, _, fs1 = refine(args, torch.zeros_like(amax), amax)
-            lo2, hi2, flo, fhi, _ = refine(args, lo1, hi1)
+            lo, hi, flo, fhi, fs1 = refine(args, torch.zeros_like(amax), amax)
+            if line_search_levels >= 2:
+                lo, hi, flo, fhi, _ = refine(args, lo, hi)
             denom = fhi - flo
-            alpha = lo2 - flo * (hi2 - lo2) / torch.where(denom.abs() > 1e-20, denom, 1.0)
-            alpha = torch.minimum(torch.maximum(alpha, lo2), hi2)
+            alpha = lo - flo * (hi - lo) / torch.where(denom.abs() > 1e-20, denom, 1.0)
+            alpha = torch.minimum(torch.maximum(alpha, lo), hi)
             # The first level's last point is alpha_max.
             alpha = torch.where(fs1[:, -1] <= 0, amax, alpha)
         v_new = v + alpha[:, None, None] * dirn
         return v_new, torch.linalg.vector_norm(dirn, dim=(-2, -1)) / n_dofs
 
-    check_every = 1 if dev.type == "cpu" else _CHECK_EVERY
     v = v_star
     it = torch.zeros(L, dtype=torch.int32, device=dev)
     res = torch.full((L,), math.inf, dtype=dtype, device=dev)
     with record_function("grid_contact.newton"):
-        for k in range(params.max_iterations):
-            active = (res > params.rel_tolerance) & (it < params.max_iterations)
-            if k > 0 and (k == 1 or k % check_every == 0) and not bool(active.any()):
-                break
-            v_new, res_new = step(v)
-            v = torch.where(active[:, None, None], v_new, v)
-            res = torch.where(active, res_new, res)
-            it = it + active.to(torch.int32)
+        if unroll_iterations > 0:
+            for _ in range(unroll_iterations):
+                v, res = step(v)
+            it = it + unroll_iterations
+        else:
+            check_every = 1 if dev.type == "cpu" else _CHECK_EVERY
+            for k in range(params.max_iterations):
+                active = (res > params.rel_tolerance) & (it < params.max_iterations)
+                if k > 0 and (k == 1 or k % check_every == 0) and not bool(active.any()):
+                    break
+                v_new, res_new = step(v)
+                v = torch.where(active[:, None, None], v_new, v)
+                res = torch.where(active, res_new, res)
+                it = it + active.to(torch.int32)
+    return v, it, res
 
-    # Rigid reaction impulses at the solution: +de_p/dv_p on the rigid body,
-    # with the torque about each geometry's body origin.
+
+def impulses(params: GridContactParams, dt, st: _Stencil, v, phi0, n_pg, v_g, active0, x,
+             geoms: Sequence[RigidGeom], lanes):
+    """Rigid reaction impulses at the solution v (L, nodes, 3): +de_p/dv_p on
+    the rigid body, with the torque about each geometry's body origin, of the
+    rows x (L, rows, 3).  Returns (lanes..., G, 6) [tau; f]."""
+    L, rows = x.shape[:2]
+    G = len(geoms)
     g_final = _contact_grad(params, dt, phi0, n_pg, _gather(st, v)[:, None] - v_g, active0)
     imp_lin = torch.sum(g_final, dim=-2)  # (L, G, 3)
     p_WB = torch.stack([g.p_WB.expand(lanes + (3,)) for g in geoms], dim=-2).reshape(L, G, 1, 3)
-    levers = state.x.reshape(L, 1, n_p, 3) - p_WB
+    levers = x.reshape(L, 1, rows, 3) - p_WB
     imp_tau = torch.sum(torch.linalg.cross(levers, g_final, dim=-1), dim=-2)
-    sol = GridContactSolution(
-        grid_vel=v.reshape(grid_vel.shape),
-        impulses=torch.cat([imp_tau, imp_lin], dim=-1).reshape(lanes + (G, 6)),
-        iterations=it.reshape(lanes),
-        residual=res.reshape(lanes),
-    )
-    if _LOG is not None:
-        _LOG.append(sol._replace(grid_vel=None))
-    return sol
+    return torch.cat([imp_tau, imp_lin], dim=-1).reshape(lanes + (G, 6))
 
 
 @record_function("grid_contact.substep")

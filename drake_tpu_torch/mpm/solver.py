@@ -14,7 +14,9 @@ GPU pipeline it re-derives is multibody/gpu_mpm/cuda_mpm_solver.cu
   direct ``index_add_`` scatter and the plain grid update.  ``particle_to_grid``
   and ``update_grid`` (the dense K1) keep the dense grid between them.
 - G2P: the 27-tap stencil gather in plain torch, or, in the fused
-  ``mpm_substep_blocked``, the K3 kernel over the same block sort.
+  ``blocked_substep`` (``mpm_substep_blocked`` and the tile pipeline of
+  ``mpm/tiles.py``), the K3 kernel over the same block sort, one output row
+  per sorted row, and one gather back to particle order.
 
 The substep makes no host sync: capacities are static (``MpmConfig``), the
 active-block compaction has a fixed size, and ``dropped`` stays a device
@@ -27,15 +29,14 @@ once -- ``MpmState`` fields ``(L, n, ...)``, ``GridState`` fields
 ``(L, nx, ny, nz, ...)`` and ``dropped`` ``(L,)`` -- as the JAX package
 takes them under ``vmap``.  Every lane has its own grid: the lane enters the
 flat node index and the block sort key, never the particle positions, so one
-lane's stencil cannot reach another lane's nodes.  ``mpm_substep_blocked``
-takes one state only.
+lane's stencil cannot reach another lane's nodes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -175,11 +176,16 @@ def _bspline_weights(xp, dx):
     inv_dx = 1.0 / dx
     pos = xp * inv_dx
     base = torch.floor(pos - 0.5).long()
-    fx = pos - base.to(xp.dtype)  # in [0.5, 1.5]
+    return base, _bspline_taps(pos - base.to(xp.dtype))
+
+
+def _bspline_taps(fx):
+    """The three taps' weights of each axis at offset fx = x / dx - base (in
+    [0.5, 1.5] for the unclipped base): (..., 3 axes, 3 taps)."""
     w0 = 0.5 * (1.5 - fx) ** 2
     w1 = 0.75 - (fx - 1.0) ** 2
     w2 = 0.5 * (fx - 0.5) ** 2
-    return base, torch.stack([w0, w1, w2], dim=-1)  # (n, 3 axes, 3 taps)
+    return torch.stack([w0, w1, w2], dim=-1)
 
 
 _STENCIL = tuple((i, j, k) for i in range(3) for j in range(3) for k in range(3))
@@ -300,7 +306,13 @@ class BlockSort(NamedTuple):
     dropped: torch.Tensor  # ([L]) int32 particles left out by the capacities
 
 
-def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
+def sort_particles(
+    config: MpmConfig,
+    state: MpmState,
+    live: Optional[torch.Tensor] = None,
+    clip_weights: bool = False,
+    particle_force: Optional[torch.Tensor] = None,
+) -> BlockSort:
     """Pack each particle's P2G/G2P inputs into one 40-column row, sort the
     rows by 4^3-cell block and, within a block, by base cell (x slowest, z
     fastest), and compact the active blocks to a fixed size (the
@@ -308,7 +320,13 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
 
     On the blocked paths the base cell is clipped to n-3 per axis (so the
     6^3 window stays in the grid) while the weights come from the unclipped
-    base.
+    base; with ``clip_weights`` they come from the clipped base, as the
+    tile pipeline takes them (``drake_tpu/mpm/tiles.py:669-677``).
+
+    ``live`` ([L,] n) bool, if given, leaves the other particles out of
+    every block: their rows sort to the end of their lane, under the lane's
+    sentinel block id, and ``dropped`` counts only live particles.
+    ``particle_force`` ([L,] n, 3) adds dt f to each particle's momentum.
 
     Over L lanes the key leads with the lane, and each lane keeps its own
     first A distinct blocks: block ids and ``dropped`` are per lane, and
@@ -334,6 +352,8 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
     base, w = _bspline_weights(x, dx)
     hi = device_constant((nx - 3, ny - 3, nz - 3), torch.int64, dev)
     base = torch.minimum(base.clamp_min(0), hi)
+    if clip_weights:
+        w = _bspline_taps(x / dx - base.to(dtype))
     bxyz = base // 4
     # u = m v + B (x_node - x_p) split into u0 = m v - B (x_p - o) and
     # + B (x_node - o), about the origin o of the particle's block: the
@@ -341,6 +361,8 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
     # |x| ~ 1 cancels between the two (mpm_kernels, the packed row).
     origin = (4 * bxyz).to(dtype) * dx
     u0 = mass[:, None] * state.v.reshape(N, 3) - torch.einsum("nij,nj->ni", affine, x - origin)
+    if particle_force is not None:
+        u0 = u0 + config.dt * particle_force.reshape(N, 3)
     lb_local = base - 4 * bxyz  # 0..3
     # Sort key: (lane * (nblocks + 1) + block id) * 64 + cell in block
     # (lx * 16 + ly * 4 + lz).  The lane stride leaves each lane's sentinel
@@ -349,6 +371,8 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
         (64 * nby * nbz, 64 * nbz, 64, 16, 4, 1), torch.int64, dev
     )
     key = (torch.cat([bxyz, lb_local], dim=1) * radix).sum(dim=1)
+    if live is not None:
+        key = torch.where(live.reshape(N), key, nblocks * 64)
     bid = key >> 6
     key = key + (torch.arange(N, device=dev) // n) * (64 * (nblocks + 1))
 
@@ -388,7 +412,9 @@ def sort_particles(config: MpmConfig, state: MpmState) -> BlockSort:
     counts = torch.clamp(ends - starts, max=PMAX)
     # Sentinel entries cover no particle.
     counts = torch.where(active < nblocks, counts, 0)
-    dropped = (n - counts.reshape(L, A).sum(dim=1)).to(torch.int32)
+    taken = counts.reshape(L, A).sum(dim=1)
+    n_live = n if live is None else live.reshape(L, n).sum(dim=1)
+    dropped = (n_live - taken).to(torch.int32)
     return BlockSort(
         packed=packed_s, perm=perm, bid=bid.reshape(lanes + (n,)),
         active=active.reshape(lanes + (A,)),
@@ -539,38 +565,25 @@ def grid_to_particle(
     return state.replace(x=x_new, v=v_new, F=F_new, C=C_new)
 
 
-def block_windows(grid_field, nbx, nby, nbz):
-    """All 6^3 block windows by strided slicing (no gathers).
-
-    grid_field: (nx, ny, nz, c) -> (nblocks, 216, c) where row (b, l) is
-    grid[4bx+lx, 4by+ly, 4bz+lz] (zero past the grid's upper faces)."""
-    c = grid_field.shape[-1]
-    padded = torch.nn.functional.pad(grid_field, (0, 0, 0, 8, 0, 8, 0, 8))
-
-    def axis_stack(f, nb, axis):
-        # (..., nb, 6, ...): slice l::4 along `axis`, stacked on a new axis.
-        lead = (slice(None),) * axis
-        return torch.stack(
-            [f[lead + (slice(l, l + 4 * nb, 4),)] for l in range(6)], dim=axis + 1
-        )
-
-    T = axis_stack(padded, nbx, 0)  # (nbx, 6, ny+8, nz+8, c)
-    T = axis_stack(T, nby, 2)  # (nbx, 6, nby, 6, nz+8, c)
-    T = axis_stack(T, nbz, 4)  # (nbx, 6, nby, 6, nbz, 6, c)
-    T = T.permute(0, 2, 4, 1, 3, 5, 6)
-    return T.reshape(nbx * nby * nbz, P2G_NODES, c)
-
-
 def block_velocity_windows(config: MpmConfig, grid_vel, active, node_pos):
     """K3's input: each active block's 216-node velocity window, extended
     with v * node channels so that one contraction yields both v_p and
-    sum_l w v n^T.  Returns (A, 216, 12) [v, v n_x, v n_y, v n_z]; sentinel
-    entries get a zero window."""
+    sum_l w v n^T.  grid_vel ([L,] nx, ny, nz, 3), active and node_pos as
+    ``window_node_pos`` makes them.  Returns ([L,] A, 216, 12) [v, v n_x,
+    v n_y, v n_z], gathered for the active blocks only; window nodes past the
+    grid's upper faces, and sentinel entries, get zero."""
     nx, ny, nz = config.grid_size
-    nbx, nby, nbz = nx // 4, ny // 4, nz // 4
-    win_all = block_windows(grid_vel, nbx, nby, nbz)  # (nblocks, 216, 3)
-    zero = torch.zeros((1, P2G_NODES, 3), dtype=grid_vel.dtype, device=grid_vel.device)
-    win = torch.cat([win_all, zero])[active.clamp(max=nbx * nby * nbz)]
+    lanes = tuple(active.shape[:-1])
+    A = active.shape[-1]
+    nodes = nx * ny * nz
+    idx = mpm_kernels.window_node_index(config.grid_size, active)  # (..., A, 216, 3)
+    inside = (idx[..., 0] < nx) & (idx[..., 1] < ny) & (idx[..., 2] < nz)
+    flat = torch.where(inside, (idx[..., 0] * ny + idx[..., 1]) * nz + idx[..., 2], nodes)
+    field = torch.cat(
+        [grid_vel.reshape(lanes + (nodes, 3)), grid_vel.new_zeros(lanes + (1, 3))], dim=-2
+    )
+    flat = flat.reshape(lanes + (A * P2G_NODES, 1)).expand(lanes + (A * P2G_NODES, 3))
+    win = torch.gather(field, -2, flat).reshape(lanes + (A, P2G_NODES, 3))
     return torch.cat(
         [win, win * node_pos[..., 0:1], win * node_pos[..., 1:2],
          win * node_pos[..., 2:3]],
@@ -611,53 +624,65 @@ def mpm_substep(config: MpmConfig, state: MpmState) -> MpmState:
     return out.replace(dropped=dropped)
 
 
-def mpm_substep_blocked(config: MpmConfig, state: MpmState) -> MpmState:
-    """Fused blocked substep: ONE block sort shared by P2G (K2) and G2P (K3),
-    the grid update from K2's block windows between them, K3's windows by
-    strided slicing, and an unsort back to particle order.  Particles dropped by the capacities keep
-    their old state.  One state only (no lane axis)."""
-    if state.x.dim() != 2:
-        raise NotImplementedError(
-            "mpm_substep_blocked takes one state; over lanes use mpm_substep"
-        )
-    dx, dt = config.dx, config.dt
+def blocked_substep(
+    config: MpmConfig,
+    state: MpmState,
+    live: Optional[torch.Tensor] = None,
+    clip_weights: bool = False,
+    particle_force: Optional[torch.Tensor] = None,
+    grid_op: Optional[Callable] = None,
+) -> MpmState:
+    """One substep on ONE block sort shared by P2G (K2) and G2P (K3): the
+    grid update from K2's block windows between them (K1, with the node
+    mass when there is a ``grid_op``), then ``grid_op(vel, mass) -> vel`` on
+    each lane's dense fields ([L,] nx, ny, nz, 3) and ([L,] nx, ny, nz) if
+    given, K3 on the result's windows (one output row per sorted row), and
+    one gather back to particle order.
+
+    ``live``, ``clip_weights`` and ``particle_force`` go to
+    ``sort_particles``.  Particles that are not live, and those the
+    capacities leave out, keep their state; ``dropped`` counts the second
+    kind, per lane."""
     dtype = state.x.dtype
-    n = state.x.shape[0]
-    A = config.max_active_blocks
+    lanes = state.x.shape[:-2]
+    n = state.x.shape[-2]
     PMAX = config.block_capacity
 
-    sort = sort_particles(config, state)
-    grid_vel = _velocity_from_blocks(config, sort)  # (nx, ny, nz, 3)
+    sort = sort_particles(config, state, live, clip_weights, particle_force)
+    if grid_op is None:
+        grid_vel = _velocity_from_blocks(config, sort)
+    else:
+        grid_vel, grid_mass = _velocity_from_blocks(config, sort, with_mass=True)
+        grid_vel = grid_op(grid_vel, grid_mass)
     node_pos = window_node_pos(config, sort.active, dtype)
     vel_ext = block_velocity_windows(config, grid_vel, sort.active, node_pos)
-    out_p = mpm_kernels.g2p_block(
-        sort.packed, vel_ext, sort.starts, sort.counts, PMAX, 4.0 / dx**2, dt,
-        plain=config.xla_only,
-    )  # (A, PMAX, 24): x_new, v_new, F_new, C_new
+    out = mpm_kernels.g2p_block(
+        sort.packed, vel_ext, sort.starts, sort.counts, PMAX, 4.0 / config.dx**2,
+        config.dt, plain=config.xla_only,
+    )  # (L n, 24): x_new, v_new, F_new, C_new at each sorted row
 
-    # Unsort: particle i sits at sorted row invperm[i], slot invperm[i] -
-    # starts[a] of its block a.
+    # Unsort: particle i sits at sorted row invperm[i].
+    N = sort.perm.shape[0]
     invperm = torch.empty_like(sort.perm)
-    invperm[sort.perm] = torch.arange(n, device=invperm.device)
-    a_i = torch.searchsorted(sort.active, sort.bid)
-    a_c = a_i.clamp(0, A - 1)
-    slot = invperm - sort.starts[a_c]
-    covered = (
-        (a_i < A)
-        & (sort.active[a_c] == sort.bid)
-        & (slot >= 0)
-        & (slot < sort.counts[a_c])
-    )
-    row = a_c * PMAX + slot.clamp(0, PMAX - 1)
-    got = out_p.reshape(A * PMAX, mpm_kernels.G2P_OUT)[row]
-    cov = covered[:, None]
+    invperm[sort.perm] = torch.arange(N, device=invperm.device)
+    taken = mpm_kernels.taken_rows(sort.starts, sort.counts, N, PMAX)
+    got = out[invperm].reshape(lanes + (n, mpm_kernels.G2P_OUT))
+    cov = taken[invperm].reshape(lanes + (n, 1))
     return state.replace(
-        x=torch.where(cov, got[:, 0:3], state.x),
-        v=torch.where(cov, got[:, 3:6], state.v),
-        F=torch.where(cov[..., None], got[:, 6:15].reshape(n, 3, 3), state.F),
-        C=torch.where(cov[..., None], got[:, 15:24].reshape(n, 3, 3), state.C),
+        x=torch.where(cov, got[..., 0:3], state.x),
+        v=torch.where(cov, got[..., 3:6], state.v),
+        F=torch.where(cov[..., None], got[..., 6:15].reshape(lanes + (n, 3, 3)), state.F),
+        C=torch.where(cov[..., None], got[..., 15:24].reshape(lanes + (n, 3, 3)), state.C),
         dropped=sort.dropped,
     )
+
+
+def mpm_substep_blocked(config: MpmConfig, state: MpmState) -> MpmState:
+    """Fused blocked substep (``blocked_substep`` with every particle live):
+    one block sort shared by K2 and K3, the grid update from K2's block
+    windows between them, an unsort back to particle order.  Particles
+    dropped by the capacities keep their old state."""
+    return blocked_substep(config, state)
 
 
 def simulate(config: MpmConfig, state: MpmState, num_substeps: int) -> MpmState:

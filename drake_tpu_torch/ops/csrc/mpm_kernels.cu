@@ -528,23 +528,25 @@ p2g_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
 // K3 -- blocked G2P.  Replaces _g2p_block_kernel (drake_tpu/ops/
 // mpm_kernels.py:536), which rebuilt the factorised weights per block in
 // VMEM and contracted them with the block's node-velocity window on the MXU.
-// Bound on this card: bytes -- packed columns 16:40 (96 B a particle) and the
-// (A, 216, 12) windows read once and the (A, pmax, 24) output written once, of which the zeros of
-// empty slots and empty blocks are the larger part; 27 taps x 12 channels of
-// FMAs a particle are far below that.  Design: one CTA per active block.  A
-// block with no particle only writes zeros, as float4.  Otherwise the
-// 216 x 12 window is copied into shared memory once (cp.async) and read as
-// three float4 a node; each warp takes every kG2PWarps-th chunk of 32 slots
-// and needs no block-wide barrier after the window: it copies its chunk's
-// packed columns 16:40 (96 B a row) into its own double-buffered stage with
-// 16-byte cp.async, the next chunk in flight while this one is computed;
-// each lane reads its row from the stage (row stride 7 float4, conflict
-// free), computes the 27 taps and the particle update, and writes the 24
-// results back into its own row of the stage; the warp then writes the
-// chunk's 32 x 96 B out as consecutive float4.  Slots past counts[a] are
-// written 0.  Rows sorted by cell make neighbouring lanes read the same
-// window nodes (broadcasts).  No alignment window: block a's particle s sits
-// at slot s.
+// Output: one row of 24 per sorted row, written at the row's index in the
+// packed table (block a's particle s at row starts[a] + s); rows that no
+// block takes are not written.  Over lanes the CTAs of all lanes' blocks
+// index the one sorted table of all lanes' rows.  Bound on this card: bytes
+// -- packed columns 16:40 and the 24 outputs of every taken row (192 B a
+// particle) and the (L A, 216, 12) windows read once; 27 taps x 12 channels
+// of FMAs a particle are far below that.  Design: one CTA per (lane, block).
+// A block with no particle returns at once.  Otherwise the 216 x 12 window
+// is copied into shared memory once (cp.async) and read as three float4 a
+// node; each warp takes every kG2PWarps-th chunk of 32 rows and needs no
+// block-wide barrier after the window: it copies its chunk's packed columns
+// 16:40 (96 B a row) into its own double-buffered stage with 16-byte
+// cp.async, the next chunk in flight while this one is computed; each lane
+// reads its row from the stage (row stride 7 float4, conflict free),
+// computes the 27 taps and the particle update, and writes the 24 results
+// back into its own row of the stage; the warp then writes the chunk's rows
+// out as consecutive float4 (a row's 96 B start 16-byte aligned).  Rows
+// sorted by cell make neighbouring lanes read the same window nodes
+// (broadcasts).
 __device__ __forceinline__ void g2p_stage_chunk(float4* dst,
                                                 const float* __restrict__ packed,
                                                 int64_t first_row, int ld,
@@ -566,25 +568,19 @@ g2p_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
   constexpr int kWinVec = kNodes * kG2PChannels / 4;
   __shared__ float4 win[kWinVec];
   __shared__ float4 stage[kG2PWarps][2][32 * kG2PRowStride];
-  const int a = blockIdx.x;
+  const int64_t a = blockIdx.x;
   const int tid = threadIdx.x;
   const int start = starts[a];
   const int count = block_count(start, counts[a], pmax, n_rows);
-  float4* o4 = reinterpret_cast<float4*>(
-      out + static_cast<int64_t>(a) * pmax * kG2POut);
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (count == 0) {
-    for (int e = tid; e < pmax * kG2PRowVec; e += kThreads) o4[e] = zero4;
-    return;
-  }
+  if (count == 0) return;
+  float4* o4 = reinterpret_cast<float4*>(out + static_cast<int64_t>(start) * kG2POut);
 
-  const float4* src4 = reinterpret_cast<const float4*>(
-      vel_ext + static_cast<int64_t>(a) * kNodes * kG2PChannels);
+  const float4* src4 = reinterpret_cast<const float4*>(vel_ext + a * kNodes * kG2PChannels);
   for (int e = tid; e < kWinVec; e += kThreads) cp_async16(win + e, src4 + e);
   cp_async_commit();
   const int warp = tid >> 5, lane = tid & 31;
-  const int nchunks = (pmax + 31) / 32;
-  if (warp * 32 < count) {
+  const int nchunks = (count + 31) / 32;
+  if (warp < nchunks) {
     g2p_stage_chunk(stage[warp][0], packed,
                     static_cast<int64_t>(start) + warp * 32, ld,
                     min(32, count - warp * 32), lane);
@@ -596,12 +592,8 @@ g2p_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
   int buf = 0;
   for (int c = warp; c < nchunks; c += kG2PWarps) {
     const int s0 = c * 32;
-    const int nslots = min(32, pmax - s0);
+    const int nslots = min(32, count - s0);
     float4* og = o4 + static_cast<int64_t>(s0) * kG2PRowVec;
-    if (s0 >= count) {  // and so is every later chunk of this warp
-      for (int e = lane; e < nslots * kG2PRowVec; e += 32) og[e] = zero4;
-      continue;
-    }
     const int s_next = s0 + kG2PWarps * 32;
     if (s_next < count) {
       g2p_stage_chunk(stage[warp][buf ^ 1], packed,
@@ -613,7 +605,7 @@ g2p_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
     __syncwarp();
     float4* st = stage[warp][buf];
     float4* mine = st + lane * kG2PRowStride;
-    if (s0 + lane < count) {
+    if (lane < nslots) {
       const float4 q0 = mine[0], q1 = mine[1], q2 = mine[2];
       const float4 q3 = mine[3], q4 = mine[4], q5 = mine[5];
       const float wx[3] = {q0.x, q0.y, q0.z};
@@ -671,9 +663,6 @@ g2p_block_kernel(const float* __restrict__ packed, int n_rows, int ld,
       for (int q = 0; q < kG2PRowVec; ++q) {
         mine[q] = make_float4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]);
       }
-    } else {
-#pragma unroll
-      for (int q = 0; q < kG2PRowVec; ++q) mine[q] = zero4;
     }
     __syncwarp();
     for (int e = lane; e < nslots * kG2PRowVec; e += 32) {

@@ -19,13 +19,15 @@ update in one kernel, so that no dense grid is built between K2 and K1;
 asked (``with_mass=True``), it also writes the node mass, which the
 implicit grid contact needs beside the velocity.
 
-Lanes: K1 and K2 also take L independent problems in one launch.  K1 takes
-``mass (L, nx, ny, nz)`` and ``momentum (L, 3, nx, ny, nz)``, the lane a grid
-dimension of the kernel; ``update_grid_blocks`` K2's output of shape
-``(L, A, 16, 216)`` and ``active (L, A)``; K2 takes ``starts`` and
+Lanes: every kernel also takes L independent problems in one launch.  K1
+takes ``mass (L, nx, ny, nz)`` and ``momentum (L, 3, nx, ny, nz)``, the lane
+a grid dimension of the kernel; ``update_grid_blocks`` K2's output of shape
+``(L, A, 16, 216)`` and ``active (L, A)``; K2 and K3 take ``starts`` and
 ``counts`` of shape ``(L, A)`` into one packed table of all lanes' rows
-(``sort_particles`` makes it), one CTA per (lane, block).  The plain
-versions take the same shapes.
+(``sort_particles`` makes it), one CTA per (lane, block), and K3 its
+windows as ``(L, A, 216, 12)``.  K3 writes one output row per sorted row,
+at that row's index in the table.  The plain versions take the same
+shapes.
 
 The packed particle row keeps the JAX package's column meaning but is 40
 wide instead of 128 (no TPU lane padding): 0:16 values [m, u0 (3), B (9),
@@ -52,6 +54,7 @@ from drake_tpu_torch.ops import _build
 
 P2G_NV = 16  # value channels: [mass, u0(3), B(9), pad(3)]
 P2G_NODES = 216  # 6^3 block-window nodes
+_TAPS = tuple((i, j, k) for i in range(3) for j in range(3) for k in range(3))
 G2P_VEL_CH = 12  # [v(3), v*node_x(3), v*node_y(3), v*node_z(3)]
 G2P_OUT = 24  # [x_new(3), v_new(3), F_new(9), C_new(9)]
 PACKED_COLS = 40
@@ -199,9 +202,10 @@ def empty_launch_cuda(blocks: int, threads: int, device) -> None:
 # ---------------------------------------------------------------------------
 
 
-def window_node_pos(grid_size, dx, active, dtype):
-    """(..., A, 216, 3) world positions of each active block's 6^3 window
-    nodes, node l = (i*6+j)*6+k at grid index 4*block + (i, j, k)."""
+def window_node_index(grid_size, active):
+    """(..., A, 216, 3) grid index 4*block + (i, j, k) of each active
+    block's 6^3 window node l = (i*6+j)*6+k (past the grid's upper faces for
+    the sentinel id and for the last blocks' halos)."""
     _, ny, nz = grid_size
     nby, nbz = ny // 4, nz // 4
     ablock = torch.stack(
@@ -211,7 +215,13 @@ def window_node_pos(grid_size, dx, active, dtype):
     ll = torch.stack(
         torch.meshgrid(l_range, l_range, l_range, indexing="ij"), dim=-1
     ).reshape(P2G_NODES, 3)
-    return (4 * ablock[..., None, :] + ll).to(dtype) * dx
+    return 4 * ablock[..., None, :] + ll
+
+
+def window_node_pos(grid_size, dx, active, dtype):
+    """(..., A, 216, 3) world positions of each active block's 6^3 window
+    nodes (``window_node_index`` times dx)."""
+    return window_node_index(grid_size, active).to(dtype) * dx
 
 
 def _combine(T, block_axis, local_axis, nb):
@@ -331,8 +341,7 @@ def update_grid_blocks(out, active, grid_size, dx, dt, gravity, wall_width, plai
 
 # ---------------------------------------------------------------------------
 # Plain blocked transfers: gather each block's sorted rows into a
-# (A, pmax, ...) table and build the tensor-product weights over the block's
-# 6^3 window as a one-hot product.
+# (A, pmax, ...) table and take each row's 27 taps in the block's 6^3 window.
 # ---------------------------------------------------------------------------
 
 
@@ -346,28 +355,32 @@ def _gather_blocks(packed, starts, counts, pmax):
     return packed[pidx], valid
 
 
-def _window_weights(pk, valid):
-    """(A, pmax, 216) weights W[a, p, (i*6+j)*6+k] = wx_i wy_j wz_k of each
-    particle at each window node, zero for invalid slots."""
-    A, pmax = valid.shape
+def _axis_weights(pk):
+    """(..., 3, 6): each slot's B-spline weight at each of its window's 6
+    rows along each axis (taps at the local base + 0, 1, 2, columns 25:28
+    and 16:25 of the packed row)."""
     lbb = pk[..., 25:28].long()
-    wb = pk[..., 16:25].reshape(A, pmax, 3, 3)
-    l_range = torch.arange(6, device=pk.device)
+    wb = pk[..., 16:25].reshape(pk.shape[:-1] + (3, 3))
+    rows = torch.arange(6, device=pk.device)
+    acc = torch.zeros(pk.shape[:-1] + (3, 6), dtype=pk.dtype, device=pk.device)
+    for t in range(3):
+        acc = acc + (rows == (lbb + t)[..., None]).to(pk.dtype) * wb[..., t, None]
+    return acc
 
-    def axis_onehot(axis):
-        acc = torch.zeros((A, pmax, 6), dtype=pk.dtype, device=pk.device)
-        for t in range(3):
-            mask = l_range[None, None, :] == (lbb[..., axis] + t)[..., None]
-            acc = acc + mask.to(pk.dtype) * wb[..., axis, t][..., None]
-        return acc
 
-    wx, wy, wz = axis_onehot(0), axis_onehot(1), axis_onehot(2)
-    W = (
-        wx[:, :, :, None, None]
-        * wy[:, :, None, :, None]
-        * wz[:, :, None, None, :]
-    ).reshape(A, pmax, P2G_NODES)
-    return W * valid[..., None]
+def _window_taps(pk):
+    """Each slot's 27 taps in its block's 6^3 window: (node index
+    (i*6+j)*6+k (..., 27), weight wx_i wy_j wz_k (..., 27)) from the packed
+    local base (columns 25:28) and taps (16:25)."""
+    lbb = pk[..., 25:28].long()
+    wb = pk[..., 16:25].reshape(pk.shape[:-1] + (3, 3))
+    taps = device_constant(_TAPS, torch.int64, pk.device)  # (27, 3)
+    node = ((lbb[..., None, 0] + taps[:, 0]) * 6 + lbb[..., None, 1] + taps[:, 1]) * 6 + (
+        lbb[..., None, 2] + taps[:, 2])
+    w = wb[..., 0, taps[:, 0]] * wb[..., 1, taps[:, 1]] * wb[..., 2, taps[:, 2]]
+    # The local base is 0..3 by construction; the clamp keeps a corrupt row
+    # inside the window, as the kernels' does.
+    return node.clamp(0, P2G_NODES - 1), w
 
 
 # ---------------------------------------------------------------------------
@@ -384,8 +397,13 @@ def p2g_block_reference(packed, starts, counts, pmax: int):
     ``p2g_block`` also requires the rows of a block sorted by local base; this
     version does not use that order and does not check it."""
     pk, valid = _gather_blocks(packed, starts.reshape(-1), counts.reshape(-1), pmax)
-    Vb = pk[..., 0:P2G_NV] * valid[..., None]
-    out = torch.einsum("apv,apl->avl", Vb, _window_weights(pk, valid))
+    A = valid.shape[0]
+    # The window weight wx_i wy_j wz_k factorised: the values times wx_i,
+    # contracted over the slots with wy_j wz_k.
+    wa = _axis_weights(pk)  # (A, pmax, 3, 6)
+    Vx = (pk[..., 0:P2G_NV] * valid[..., None])[..., None] * wa[..., 0, None, :]
+    Wyz = (wa[..., 1, :, None] * wa[..., 2, None, :]).reshape(A, pmax, 36)
+    out = torch.einsum("apvi,apm->avim", Vx, Wyz)  # (A, 16, 6, 36)
     return out.reshape(starts.shape + (P2G_NV, P2G_NODES))
 
 
@@ -438,45 +456,70 @@ def p2g_block(packed, starts, counts, pmax: int, plain=False):
 # ---------------------------------------------------------------------------
 
 
+def _row_owner(starts, counts, rows: int, pmax: int):
+    """(rows,) int64: a + 1 on the rows ``starts[a] + s``, ``s <
+    min(counts[a], pmax)``, that block a takes, 0 on the rows no block
+    takes.  The blocks' runs may not overlap."""
+    s = starts.reshape(-1).long().clamp(0, rows)
+    e = (s + counts.reshape(-1).long().clamp(0, pmax)).clamp(max=rows)
+    a1 = torch.arange(1, s.shape[0] + 1, device=starts.device) * (e > s)
+    edge = torch.zeros(rows + 1, dtype=torch.int64, device=starts.device)
+    edge.index_add_(0, s, a1)
+    edge.index_add_(0, e, -a1)
+    return torch.cumsum(edge, 0)[:-1]
+
+
+def taken_rows(starts, counts, rows: int, pmax: int):
+    """(rows,) bool: the rows of the packed table that some block takes,
+    ``starts[a] + s`` for ``s < min(counts[a], pmax)`` -- the rows that K3
+    writes.  The blocks' runs may not overlap."""
+    return _row_owner(starts, counts, rows, pmax) > 0
+
+
 def g2p_block_reference(packed, vel_ext, starts, counts, pmax: int, dxi2, dt):
-    """Plain version.  packed: (n, 40) block-sorted rows; vel_ext:
-    (A, 216, >=12) per-block node channels [v, v*n_x, v*n_y, v*n_z].
-    Returns (A, pmax, 24): block a's particle s at slot s with columns
-    0:3 x_new, 3:6 v_new, 6:15 F_new, 15:24 C_new; slots past counts[a] are
-    zero."""
-    pk, valid = _gather_blocks(packed, starts, counts, pmax)
-    A = valid.shape[0]
-    W = _window_weights(pk, valid)
-    g2p = torch.einsum("apl,alv->apv", W, vel_ext[..., :G2P_VEL_CH])
-    v_new = g2p[..., 0:3]
+    """Plain version.  packed: (n, 40) block-sorted rows; vel_ext: ([L,] A,
+    216, >=12) per-block node channels [v, v*n_x, v*n_y, v*n_z]; starts,
+    counts: ([L,] A) runs of `packed` that do not overlap.  Returns (n, 24):
+    block a's particle s at row starts[a] + s (s < counts[a], at most
+    pmax) with columns 0:3 x_new, 3:6 v_new, 6:15 F_new, 15:24 C_new; rows
+    that no block takes are zero (the kernel does not write them).  Each
+    row gathers its 27 taps from its block's window."""
+    n = packed.shape[0]
+    A = starts.numel()
+    vel_ext = vel_ext.reshape(A * P2G_NODES, vel_ext.shape[-1])[:, :G2P_VEL_CH]
+    owner = _row_owner(starts, counts, n, pmax)
+    node, w = _window_taps(packed)  # (n, 27)
+    win = vel_ext[(owner - 1).clamp_min(0)[:, None] * P2G_NODES + node]  # (n, 27, 12)
+    g2p = torch.einsum("nt,ntv->nv", w, win)
+    v_new = g2p[:, 0:3]
     # channel 3 + 3a + i = sum_l w v_i n_a; C[i][j] needs (i, a), hence the
     # transpose.
-    wvn = g2p[..., 3:12].reshape(A, pmax, 3, 3)
-    x_p = pk[..., 28:31]
-    C_new = dxi2 * (wvn.transpose(-1, -2) - v_new[..., :, None] * x_p[..., None, :])
-    F_p = pk[..., 31:40].reshape(A, pmax, 3, 3)
-    eye = torch.eye(3, dtype=pk.dtype, device=pk.device)
+    wvn = g2p[:, 3:12].reshape(n, 3, 3)
+    x_p = packed[:, 28:31]
+    C_new = dxi2 * (wvn.transpose(-1, -2) - v_new[:, :, None] * x_p[:, None, :])
+    F_p = packed[:, 31:40].reshape(n, 3, 3)
+    eye = torch.eye(3, dtype=packed.dtype, device=packed.device)
     F_new = (eye + dt * C_new) @ F_p
     x_new = x_p + dt * v_new
-    out = torch.cat(
-        [x_new, v_new, F_new.reshape(A, pmax, 9), C_new.reshape(A, pmax, 9)],
-        dim=-1,
-    )
-    return out * valid[..., None]
+    out = torch.cat([x_new, v_new, F_new.reshape(n, 9), C_new.reshape(n, 9)], dim=-1)
+    return torch.where((owner > 0)[:, None], out, 0.0)
 
 
 def g2p_block_cuda(packed, vel_ext, starts, counts, pmax: int, dxi2, dt):
     """Launch K3 (``g2p_block_kernel``).  packed: (n, >=40) float32; vel_ext:
-    (A, 216, 12) float32; starts, counts: (A,) int32.  Layout as the plain
-    version."""
-    A = starts.shape[0]
+    ([L,] A, 216, 12) float32; starts, counts: ([L,] A) int32 into the one
+    packed table of all lanes' rows, one CTA per entry.  Returns (n, 24) as
+    the plain version, but rows that no block takes (``taken_rows``) are
+    left unwritten."""
+    shape = tuple(starts.shape)
+    A = math.prod(shape)
     _check_rows(packed, PACKED_COLS)
-    _check("vel_ext", vel_ext, shape=(A, P2G_NODES, G2P_VEL_CH), device=packed.device)
+    _check("vel_ext", vel_ext, shape=shape + (P2G_NODES, G2P_VEL_CH), device=packed.device)
     if vel_ext.data_ptr() % 16:
         raise ValueError("vel_ext: storage must be 16-byte aligned")
-    _check("starts", starts, torch.int32, (A,), packed.device)
-    _check("counts", counts, torch.int32, (A,), packed.device)
-    out = torch.empty((A, pmax, G2P_OUT), dtype=torch.float32, device=packed.device)
+    _check("starts", starts, torch.int32, shape, packed.device)
+    _check("counts", counts, torch.int32, shape, packed.device)
+    out = torch.empty((packed.shape[0], G2P_OUT), dtype=torch.float32, device=packed.device)
     if A == 0 or pmax == 0:
         return out
     lib = _build.load_library()
@@ -494,7 +537,7 @@ def g2p_block_cuda(packed, vel_ext, starts, counts, pmax: int, dxi2, dt):
 
 def g2p_block(packed, vel_ext, starts, counts, pmax: int, dxi2, dt, plain=False):
     """Dispatcher: plain version for CPU tensors or ``plain=True``, K3 for
-    CUDA tensors."""
+    CUDA tensors.  Only the rows that ``taken_rows`` marks are defined."""
     if plain or packed.device.type == "cpu":
         return g2p_block_reference(packed, vel_ext, starts, counts, pmax, dxi2, dt)
     return g2p_block_cuda(packed, vel_ext, starts, counts, pmax, dxi2, dt)

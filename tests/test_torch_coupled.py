@@ -361,31 +361,80 @@ def test_auto_contact_model_picks_as_the_reference(stiffness, model):
     assert (w.mpm_config.dt * np.sqrt(stiffness) >= 1.0) == (model == "implicit")
 
 
-@pytest.mark.parametrize("change", ["implicit", "auto_stiff"])
-def test_unported_branches_raise(change):
-    """The tiled implicit branch (the default of "implicit", and so of
-    "auto" on stiff contact) raises, naming its ROADMAP items."""
+# The tiled implicit branch: the default of "implicit", and of "auto" on
+# stiff contact (k 1e6: dt sqrt(k) = 1, where "auto" turns implicit).
+TILED_WORLDS = {"implicit": dict(contact_model="implicit"), "auto_stiff": dict(stiffness=1e6)}
+# Active blocks of the tiled worlds: the blob covers 2 of the 16^3 grid's 64
+# blocks, and the reference's closure (4 A slots of 8^3 windows) costs it
+# seconds a substep on the CPU at the bench's A = 64.
+TILED_ACTIVE_BLOCKS = 8
+
+
+def _tiled_world(world, case, contact_params):
+    """`world` (either package's) switched to the tiled implicit branch,
+    with TILED_ACTIVE_BLOCKS."""
+    kw = TILED_WORLDS[case]
+    world = dataclasses.replace(world, mpm_config=dataclasses.replace(
+        world.mpm_config, max_active_blocks=TILED_ACTIVE_BLOCKS))
+    if "stiffness" in kw:
+        return dataclasses.replace(world, contact_params=contact_params(stiffness=kw["stiffness"]))
+    return dataclasses.replace(world, **kw)
+
+
+@pytest.fixture(scope="module")
+def tiled_worlds():
+    """The JAX package's tiled implicit world step over the lanes of the
+    coupled fixture, for both cases, in one program."""
+    from drake_tpu.contact import coupled_plant as jcp
+    from drake_tpu.mpm import coupling as jcpl
+
+    jworld, jparams, jparticles = jax_paddle_world()
+    worlds = {case: _tiled_world(jworld, case, jcpl.MpmContactParams) for case in TILED_WORLDS}
+    rigid, v, tau = lane_inputs(jparticles.x.shape[0])
+
+    def one(rigid1, v1, tau1):
+        state = jcp.CoupledState(rigid=rigid1, particles=jparticles.replace(v=v1))
+        return {case: w.step(jparams, state, tau1) for case, w in worlds.items()}
+
+    return {"ref": run_jitted(jax.vmap(one), rigid, v, tau), "rigid": rigid, "v": v, "tau": tau}
+
+
+@pytest.mark.parametrize("case", list(TILED_WORLDS))
+def test_tiled_implicit_world_step_matches_jax(tiled_worlds, case):
+    """The tiled implicit branch -- "implicit" with the default tiled=True,
+    and "auto" on stiff contact -- over 2 lanes: one group sort, 2 resident
+    substeps with the grid contact on the closure, then SAP; ``dropped`` the
+    step's sum, as the reference's."""
     import torch
 
     from drake_tpu_torch.benchmarks import paddle_blob
+    from drake_tpu_torch.contact import coupled_plant
     from drake_tpu_torch.mpm import coupling as tcpl
+    from drake_tpu_torch.mpm import grid_contact as tgc
 
-    w = paddle_blob.build(device="cpu", dtype=torch.float64)
-    world, items = {
-        "implicit": (dataclasses.replace(w.world, contact_model="implicit", tiled=True),
-                     "items 2 and 5"),
-        "auto_stiff": (dataclasses.replace(
-            w.world, contact_params=tcpl.MpmContactParams(stiffness=1e7)), "items 2 and 5"),
-    }[change]
-    assert world.tiled
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {items}"):
-        world.step(w.params, w.state0, torch.zeros(1, dtype=torch.float64))
+    tw = port_paddle_world()
+    world = _tiled_world(tw.world, case, tcpl.MpmContactParams)
+    assert world.tiled and world.resolved_contact_model() == "implicit"
+    s = paddle_blob.lanes(tw.state0, LANES)
+    s = coupled_plant.CoupledState(
+        rigid=torch.tensor(tiled_worlds["rigid"]),
+        particles=s.particles.replace(v=torch.tensor(tiled_worlds["v"])))
+    with tgc.solve_log() as log:
+        got = world.step(tw.params, s, torch.tensor(tiled_worlds["tau"]))
+    want = tiled_worlds["ref"][case]
+    # The stiff case kicks the paddles to tens of m/s: RIGID_TOL of the
+    # rigid state's scale.
+    close(got.rigid, want.rigid, RIGID_TOL * max(1.0, float(np.abs(want.rigid).max())))
+    assert_particles_close(got.particles, want.particles)
+    assert [int(d) for d in got.particles.dropped] == [0, 0]
+    assert len(log) == world.substeps_per_step
+    assert (log[0].impulses.abs().amax(dim=(-2, -1)) > 0).all()
+    assert (log[0].iterations > 1).all()
 
 
 def test_cloth_branch_steps():
-    """With a cloth_config the cloth branch runs, before the tiled check
-    that the other implicit worlds meet (tests/test_torch_cloth.py holds it
-    against the JAX package)."""
+    """With a cloth_config the cloth branch runs, whatever ``tiled`` says
+    (tests/test_torch_cloth.py holds it against the JAX package)."""
     import torch
 
     from drake_tpu_torch.examples import mpm_bagging

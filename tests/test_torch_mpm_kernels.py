@@ -90,6 +90,25 @@ def _blocks():
     return 512, 64, starts, counts
 
 
+def _row_blocks():
+    """Block table over 512 rows whose runs do not overlap, as K3 takes it
+    (one output row per taken row): unaligned starts, and counts of 0, 1 and
+    a full pmax = 64 among them."""
+    counts = np.asarray([40, 0, 64, 1, 40, 33, 17, 40], np.int32)
+    starts = (3 + np.concatenate([[0], np.cumsum(counts[:-1] + 5)])).astype(np.int32)
+    return 512, 64, starts, counts
+
+
+def _assert_g2p_rows(out, ref, starts, counts, tol):
+    """K3's (n, 24) rows against a per-block (A, pmax, 24) oracle: block a's
+    particle s at row starts[a] + s; rows that no block takes are zero."""
+    taken = np.zeros(out.shape[0], bool)
+    for a, (s0, c) in enumerate(zip(starts, counts)):
+        _assert_g2p_close(out[s0:s0 + c], ref[a, :c], tol)
+        taken[s0:s0 + c] = True
+    assert not out[~taken].any()
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_update_grid_matches_jax(jmk, tmk, dtype):
     rng = np.random.default_rng(0)
@@ -146,20 +165,26 @@ def test_p2g_block_plain_takes_any_order_within_a_block(tmk):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_g2p_block_matches_jax_reference(jmk, tmk, dtype):
     rng = np.random.default_rng(2)
-    n, pmax, starts, counts = _blocks()
+    n, pmax, starts, counts = _row_blocks()
     packed = _random_packed(rng, n, dtype)
     vel_ext = (0.01 * rng.standard_normal((8, 216, 12))).astype(dtype)
     packed128 = np.zeros((n, 128), dtype)
     packed128[:, :40] = packed
-    # The JAX oracle with starts_al = starts and offs = 0 has the port's
-    # slot layout: block a's particle s at slot s.
+    # The JAX oracle with starts_al = starts and offs = 0 gives block a's
+    # particle s at slot s; the port writes it at row starts[a] + s.
     ref = jmk.g2p_block_matmul_reference(
         jnp.asarray(packed128), jnp.asarray(vel_ext), jnp.asarray(starts),
         jnp.zeros(8, jnp.int32), jnp.asarray(counts), pmax, DXI2, DT,
     )
     out = tmk.g2p_block(_t(packed), _t(vel_ext), _t(starts), _t(counts), pmax, DXI2, DT)
-    assert out.shape == (8, pmax, 24)
-    _assert_g2p_close(out.numpy(), np.asarray(ref)[..., :24], TOL[dtype])
+    assert out.shape == (n, 24)
+    _assert_g2p_rows(out.numpy(), np.asarray(ref)[..., :24], starts, counts, TOL[dtype])
+    # Over lanes: the same table as 2 lanes of 4 blocks, one output.
+    lanes = tmk.g2p_block(_t(packed), _t(vel_ext.reshape(2, 4, 216, 12)),
+                          _t(starts.reshape(2, 4)), _t(counts.reshape(2, 4)), pmax, DXI2, DT)
+    np.testing.assert_array_equal(lanes.numpy(), out.numpy())
+    taken = tmk.taken_rows(_t(starts), _t(counts), n, pmax).numpy()
+    assert taken.sum() == counts.sum() and not out.numpy()[~taken].any()
 
 
 def test_p2g_block_matches_pallas_interpret(jmk, tmk):
@@ -185,9 +210,10 @@ def test_p2g_block_matches_pallas_interpret(jmk, tmk):
 def test_g2p_block_matches_pallas_interpret(jmk, tmk):
     """The port's K3 plain version against the Pallas TPU kernel body run in
     interpret mode.  The Pallas output keeps the TPU's 8-row alignment
-    window (block a's particle s at row offs[a] + s); the port's has none."""
+    window (block a's particle s at row offs[a] + s of its block); the
+    port's is one row per packed row (at row starts[a] + s)."""
     rng = np.random.default_rng(4)
-    n, pmax, starts, counts = _blocks()
+    n, pmax, starts, counts = _row_blocks()
     packed = _random_packed(rng, n, np.float32)
     packed128 = np.zeros((n, 128), np.float32)
     packed128[:, :40] = packed
@@ -205,10 +231,8 @@ def test_g2p_block_matches_pallas_interpret(jmk, tmk):
         _t(packed), _t(vel_ext), _t(starts), _t(counts), pmax, DXI2, DT
     ).numpy()
     offs = np.asarray(offs)
-    for a in range(8):
-        c = counts[a]
-        _assert_g2p_close(out[a, :c], ref[a, offs[a]:offs[a] + c, :24], 1e-5)
-        assert not out[a, c:].any()
+    ref_slots = np.stack([ref[a, offs[a]:offs[a] + pmax, :24] for a in range(8)])
+    _assert_g2p_rows(out, ref_slots, starts, counts, 1e-5)
 
 
 def test_update_grid_blocks_wrapper_refuses_cpu_tensors(tmk):

@@ -175,13 +175,27 @@ def test_update_grid_and_grid_to_particle_match_jax(T, scene):
 
 
 def test_block_windows_match_jax(T):
+    """K3's windows (``block_velocity_windows``: each active block's 6^3
+    nodes gathered, zero past the grid's upper faces and for the sentinel)
+    are the JAX package's ``block_windows`` of those blocks, times 1 and the
+    node positions; over lanes each lane reads its own grid."""
     import torch
 
     rng = np.random.default_rng(5)
-    field = rng.standard_normal((16, 8, 12, 3))
-    ref = J.block_windows(jnp.asarray(field), 4, 2, 3)
-    got = T.block_windows(torch.from_numpy(field), 4, 2, 3)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    field = rng.standard_normal((2, 16, 8, 12, 3))
+    ref = np.stack([np.asarray(J.block_windows(jnp.asarray(f), 4, 2, 3)) for f in field])
+    config = T.MpmConfig(grid_size=(16, 8, 12), dx=1.0 / 16)
+    active = torch.tensor([[0, 5, 11, 23, 24], [3, 4, 20, 24, 24]])  # 24: the sentinel
+    node_pos = T.window_node_pos(config, active, torch.float64)
+    got = T.block_velocity_windows(config, torch.from_numpy(field), active, node_pos).numpy()
+    assert got.shape == (2, 5, 216, 12)
+    for lane in range(2):
+        for a, block in enumerate(active[lane].tolist()):
+            win = ref[lane, block] if block < 24 else np.zeros((216, 3))
+            np.testing.assert_array_equal(got[lane, a, :, 0:3], win)
+            for c in range(3):
+                np.testing.assert_array_equal(got[lane, a, :, 3 + 3 * c:6 + 3 * c],
+                                              win * node_pos[lane, a, :, c:c + 1].numpy())
 
 
 @pytest.mark.parametrize("substep", ["mpm_substep", "mpm_substep_blocked"])

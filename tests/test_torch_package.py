@@ -70,6 +70,8 @@ PORT_MODULES = (
     "drake_tpu_torch.contact.coupled_plant",
     "drake_tpu_torch.mpm.coupling",
     "drake_tpu_torch.mpm.grid_contact",
+    "drake_tpu_torch.mpm.tiles",
+    "drake_tpu_torch.mpm.tiles_contact",
     "drake_tpu_torch.mpm.cloth",
     "drake_tpu_torch.examples",
     "drake_tpu_torch.examples.mpm_bagging",
@@ -82,6 +84,7 @@ PORT_MODULES = (
     "drake_tpu_torch.benchmarks.paddle_blob",
     "drake_tpu_torch.benchmarks.bench_coupled_world",
     "drake_tpu_torch.benchmarks.bench_coupled_mpc",
+    "drake_tpu_torch.benchmarks.bench_mpm_substeps",
     "drake_tpu_torch.benchmarks.bench_update_grid",
     "drake_tpu_torch.utils.device",
     "drake_tpu_torch.utils.linalg",
@@ -115,7 +118,8 @@ def test_collecting_port_tests_loads_no_torch():
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_mpm_kernels, test_torch_mpm_solver, test_torch_package, "
         "test_torch_multibody, test_torch_contact, test_torch_mpc, test_torch_coupled, "
-        "test_torch_mppi, test_torch_grid_contact, test_torch_cloth"
+        "test_torch_mppi, test_torch_grid_contact, test_torch_cloth, test_torch_tiles, "
+        "test_torch_tiles_contact"
     )
     loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
     assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
@@ -129,6 +133,7 @@ def test_cpu_path_launches_no_kernel():
     import torch
 
     from drake_tpu_torch.mpm import solver as T
+    from drake_tpu_torch.mpm import tiles
     from drake_tpu_torch.ops import _build
     from drake_tpu_torch.ops import mpm_kernels as tmk
 
@@ -142,6 +147,7 @@ def test_cpu_path_launches_no_kernel():
     )
     state = T.simulate(config, state, 2)
     state = T.mpm_substep_blocked(config, state)
+    state = tiles.simulate_tiled(config, state, 2, resort_every=2)
     assert int(state.dropped) == 0
     assert bool(torch.isfinite(state.x).all())
     assert tmk.LAUNCHES == {"update_grid": 0, "update_grid_blocks": 0, "p2g_block": 0,
