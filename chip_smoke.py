@@ -3,8 +3,9 @@
 substep (slice 1), the batched iiwa contact-implicit MPC of bench.py (slice
 2), the coupled MPM + rigid world with its MPPI controller (slice 3,
 BASELINE config 5), that world with the dense implicit grid contact, the
-codimensional cloth's bagging demo, the tile pipeline, and the world with
-the implicit grid contact on the tile pipeline (the default of "implicit").
+codimensional cloth's bagging demo, the tile pipeline, the world with
+the implicit grid contact on the tile pipeline (the default of "implicit"),
+the quadrotor obstacle MPC (config 3) and the pendulum dircol (config 1).
 Run from the root of a checkout, on a machine with one
 NVIDIA GPU:
 
@@ -171,6 +172,36 @@ parameters:
        kernels against ``xla_only=True``, within TILED_MAX_DIFF; with
        ``--profile``, ``grid_contact.newton`` and
        ``grid_contact.line_search`` per coupled substep.
+
+Then the two NLP and MPC configs of slice 3b, which reach none of K1-K3
+(their dense algebra is library calls: batched LU, eigh, 3x3 solves):
+
+17. the quadrotor obstacle MPC, BASELINE config 3
+    (``drake_tpu_torch.benchmarks.bench_quadrotor_mpc``):
+    a. parity at batch 8, card float32 against CPU float64: the dynamics,
+       the rk4 step and its Jacobian, one 8-iteration ``ilqr.solve`` and one
+       ``rti_solve``, within QUAD_PARITY;
+    b. the bench's rollout at 4,096 lanes in one call (horizon 30, 25 MPC
+       steps, RTI): solves/s, peak memory, the lanes progressing, with the
+       gates: finite, no frozen lane, progressing >= the JAX package's CPU
+       float32 count on the same states less 1% of the lanes;
+    c. with ``--profile``, ``ilqr.*`` and ``mpc.plant_step`` per RTI step;
+18. the pendulum dircol, BASELINE config 1:
+    a. the first SQP iteration from the straight-line guess, card float64
+       against CPU float64 within 1e-9 of scale: the QP's data and solution,
+       the CPU's QP solved on the card, the whole iteration, and their
+       iteration counts;
+    b. ``examples/pendulum_dircol.py``'s flow in float64 on the card (the
+       Sl1QP solve, PD tracking through ``simulate_controlled``), with
+       tests/test_dircol.py's gates, printing ``SWING-UP SUCCESS``;
+    c. ``bench_dircol_f32``'s 32 cold starts in float32 in one call:
+       solves/s and the feasible count, gated by the JAX package's CPU
+       float32 counts on the same guesses moved by up to 2 ulps (the count
+       is chaotic in the last bit); the peak memory of one
+       iteration's ``torch.func`` derivatives at the 32 lanes;
+    d. with ``--profile``, ``sqp.derivatives``, ``ipm.solve`` and
+       ``sqp.line_search`` per SQP iteration, and the batched ``eigh``
+       timed alone.
 
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -415,6 +446,49 @@ TILED_PARITY = {name: 100 * value for name, value in TILED_PARITY_CPU.items()}
 # plain, read 1.648e-4, 2.47e-6 and 1.643e-4 apart in the paddle's state
 # in three runs of this script (NVIDIA H100 80GB HBM3, 700.00 W).
 TILED_MAX_DIFF = {"x": 1e-4, "q": 1e-4, "v": 1e-3, "paddle v": 5e-4}
+
+# The quadrotor obstacle MPC, BASELINE config 3 (phase 17;
+# drake_tpu_torch.benchmarks.bench_quadrotor_mpc: rk4 at dt 0.02, horizon 30,
+# the RTI schedule).  It reaches none of K1-K3.
+QUAD_PARITY_BATCH = 8
+QUAD_BATCH = 4096  # BASELINE config 3's "4k batched scenarios", in one call
+QUAD_STEPS = 25
+PROFILE_QUAD_STEPS = 2
+# Phase 17a bounds: 100x the same comparison between float32 and float64 on
+# a CPU (``quad_parity_values`` on the CPU in both types), which gave
+# QUAD_PARITY_CPU, as a share of the float64 answer's scale (max(1, |x|) for
+# states, max |.| otherwise).
+QUAD_PARITY_CPU = {
+    "dynamics": 1.9e-7, "rk4 x_next": 9.8e-8, "rk4 Jacobian": 1.4e-7, "solve xs": 5.1e-5,
+    "solve us": 7.2e-5, "solve cost": 3.4e-5, "rti xs": 1.4e-8, "rti us": 4.0e-8,
+    "rti cost": 1.2e-7,
+}
+QUAD_PARITY = {name: 100 * value for name, value in QUAD_PARITY_CPU.items()}
+# Phase 17b gate: the lanes progressing (the bench's test, final distance to
+# the goal below the initial one less 5 cm) at least the JAX package's CPU
+# float32 count on the same 4,096 initial states (the port's draws:
+# ``JAX_PLATFORMS=cpu python tests/nlp_mpc_reference.py --draws ...``, which
+# gave 4,093), less 1% of the lanes.
+QUAD_JAX_PROGRESSING = 4093
+QUAD_PROGRESS_SLACK = 0.01
+QUAD_LAYERS = ("ilqr.linearize", "ilqr.riccati", "ilqr.forward", "mpc.plant_step")
+
+# The pendulum dircol, BASELINE config 1 (phase 18;
+# drake_tpu_torch.examples.pendulum_dircol and benchmarks.bench_dircol_f32).
+# It reaches none of K1-K3.
+DIRCOL_PARITY = 1e-9  # 18a: card float64 against CPU float64, of the scale
+DIRCOL_BATCH = 32  # the float32 bench's batch, in one call
+# Phase 18c gate: the lanes feasible (violation < 1e-3) at least the
+# JAX package's CPU float32 count on the same 32 guesses moved by at most 2
+# ulps (the port's draws; ``tests/nlp_mpc_reference.py --nudge 2``): the
+# float32 solve is chaotic in the last bit, and the JAX package's own count
+# reads 17 on the guesses themselves and DIRCOL_JAX_FEASIBLE_NUDGED (moved
+# -2, -1, +1, +2 ulps), so that a gate at 17 would be a coin toss.
+DIRCOL_JAX_FEASIBLE = 17
+DIRCOL_JAX_FEASIBLE_NUDGED = (16, 14, 13, 17)
+DIRCOL_FEASIBLE_GATE = min((DIRCOL_JAX_FEASIBLE,) + DIRCOL_JAX_FEASIBLE_NUDGED)
+PROFILE_SQP_ITERS = 4
+DIRCOL_LAYERS = ("sqp.derivatives", "ipm.solve", "sqp.line_search")
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -1927,6 +2001,244 @@ def cloth_phase(torch, mpm, mk, gc, cloth, mpm_bagging, mpm_cloth_demo, dev, car
     return launches, launches_penalty, timed
 
 
+def rel_errors(ref, got):
+    """{name: max |got - ref| over the float64 answer's scale}: max(1, |x|)
+    for the names marked as states, max |ref| otherwise."""
+    out = {}
+    for name, (r, is_state) in ref.items():
+        g = got[name][0]
+        scale = float(r.abs().max())
+        out[name] = float((g - r).abs().max()) / (max(1.0, scale) if is_state else max(scale, 1e-300))
+    return out
+
+
+def quad_parity_values(torch, bq, ilqr, device, dtype):
+    """Phase 17a's quantities at batch QUAD_PARITY_BATCH from the bench's
+    draws, as {name: (float64 CPU tensor, is_state)}: the dynamics, the rk4
+    step and its Jacobian, one 8-iteration ``ilqr.solve`` and one
+    ``rti_solve`` from the hover warm start."""
+    from drake_tpu_torch.models import quadrotor
+
+    prob = bq.build(dtype, device)
+    p = prob["params"]
+    x0s = torch.tensor(bq.draws(QUAD_PARITY_BATCH), dtype=dtype, device=device)
+    us = prob["us0"].expand(QUAD_PARITY_BATCH, -1, -1)
+    # Rotor forces off hover, so that the quadrotor turns.
+    u = us[:, 0] + torch.linspace(-0.5, 0.5, 4, dtype=dtype, device=device)
+    t = torch.zeros(QUAD_PARITY_BATCH, dtype=dtype, device=device)
+    lims = dict(dt=bq.DT, u_lower=prob["u_lower"], u_upper=prob["u_upper"])
+    costs = (prob["running_cost"], prob["final_cost"], p)
+    sol = ilqr.solve(prob["step"], *costs, x0s, us, options=ilqr.IlqrOptions(max_iters=8), **lims)
+    rti = ilqr.rti_solve(prob["step"], *costs, x0s, us, **lims)
+    values = {
+        "dynamics": (quadrotor.dynamics(p, x0s, u), False),
+        "rk4 x_next": (prob["step"](p, x0s, u, t), True),
+        "rk4 Jacobian": (ilqr.linearize(prob["step"], p, x0s, u, t)[1], False),
+        "solve xs": (sol.xs, True), "solve us": (sol.us, False), "solve cost": (sol.cost, False),
+        "rti xs": (rti.xs, True), "rti us": (rti.us, False), "rti cost": (rti.cost, False),
+    }
+    out = {k: (v.detach().double().cpu(), s) for k, (v, s) in values.items()}
+    return out, sol.iterations.cpu()
+
+
+def quad_parity(torch, bq, ilqr, dev, card):
+    """Phase 17a: card float32 against CPU float64."""
+    ref, ref_it = quad_parity_values(torch, bq, ilqr, torch.device("cpu"), torch.float64)
+    got, got_it = quad_parity_values(torch, bq, ilqr, dev, torch.float32)
+    torch.cuda.synchronize()
+    for name, err in rel_errors(ref, got).items():
+        finite = bool(torch.isfinite(got[name][0]).all())
+        ok = finite and err <= QUAD_PARITY[name]
+        print(f"[quadrotor parity batch={QUAD_PARITY_BATCH} (phase 17a)] {name} "
+              f"{tuple(ref[name][0].shape)}: max|f32 card - f64 cpu| / scale = {err:.3e} "
+              f"(<= {QUAD_PARITY[name]:.1e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"quadrotor parity: {name} off by {err:.3e} of its scale")
+    print(f"[quadrotor parity (phase 17a)] 8-iteration solve iterations: card float32 "
+          f"{got_it.tolist()}, cpu float64 {ref_it.tolist()}")
+
+
+def quad_main_path(torch, bq, mk, dev, card):
+    """Phase 17b: the bench's rollout at QUAD_BATCH lanes in one call."""
+    mk.reset_launch_counts()
+    res = bq.run(QUAD_BATCH, QUAD_STEPS, device=dev)
+    launches = dict(mk.LAUNCHES)
+    need = math.ceil(QUAD_JAX_PROGRESSING - QUAD_PROGRESS_SLACK * QUAD_BATCH)
+    print(f"[quadrotor run (phase 17b)] batch={QUAD_BATCH} horizon={bq.HORIZON} "
+          f"steps={QUAD_STEPS} RTI float32 TF32 off: wall {res['wall_s']!r} s, "
+          f"{res['solves_per_s']!r} solves/s, {res['wall_s'] / QUAD_STEPS * 1e3!r} ms per MPC "
+          f"step [{card}]")
+    print(f"[quadrotor run (phase 17b)] {res['progressing']}/{QUAD_BATCH} progressing (gate "
+          f">= {need}: the JAX package's CPU float32 {QUAD_JAX_PROGRESSING} less "
+          f"{QUAD_PROGRESS_SLACK:.0%}), median final error {res['median_final_err']!r} m, "
+          f"finite={res['finite']}, frozen lanes {res['frozen_lanes']}, rejected plans "
+          f"{res['rejected_plans']}, peak memory {res['peak_memory_bytes']} B "
+          f"({res['peak_memory_bytes'] / 2**30:.3f} GiB); K1-K3 launches {json.dumps(launches)} "
+          f"[{card}]")
+    check(res["finite"], "quadrotor rollout: non-finite state or input")
+    check(res["frozen_lanes"] == 0, f"quadrotor rollout: {res['frozen_lanes']} lanes frozen")
+    check(res["progressing"] >= need,
+          f"quadrotor rollout: {res['progressing']}/{QUAD_BATCH} progressing, below {need}")
+    return launches, res
+
+
+def quad_profile(torch, bq, mpc, ilqr, res, dev, card):
+    """Phase 17c: torch.profiler over PROFILE_QUAD_STEPS RTI MPC steps of the
+    4,096 lanes from 17b's states after a third of its steps."""
+    prob = bq.build(torch.float32, dev)
+    x_start = res["result"].xs[:, QUAD_STEPS // 3].contiguous()
+
+    def run():
+        return mpc.ilqr_mpc_rollout(
+            prob["step"], prob["running_cost"], prob["final_cost"], prob["params"], x_start,
+            prob["us0"], PROFILE_QUAD_STEPS, dt=bq.DT, u_lower=prob["u_lower"],
+            u_upper=prob["u_upper"], options=ilqr.IlqrOptions(rti=True))
+
+    profile_layers(torch, run, PROFILE_QUAD_STEPS, QUAD_LAYERS, QUAD_LAYERS,
+                   f"quadrotor batch={QUAD_BATCH} RTI", "RTI step", card)
+
+
+def dircol_first_iteration(torch, pendulum_dircol, sqp, ipm, dev, card):
+    """Phase 18a: the pendulum's first SQP iteration from the straight-line
+    guess, card float64 against CPU float64, held three ways: the QP's data
+    and its solution (each device's own), the QP alone (the CPU's data
+    solved on the card), and the whole iteration (``sqp.solve`` with
+    ``max_iters=1``)."""
+    opts = sqp.SqpOptions()
+    out = {}
+    for key, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        system, problem, x0, xf = pendulum_dircol.build_problem(torch.float64, device)
+        z0 = problem.initial_guess(x0, xf, pendulum_dircol.TIMESPAN, torch.float64, device)[None]
+        lb, ub = problem.bounds(torch.float64, device)
+        args = (system.default_params,)
+        m = problem.constraints(z0[0], *args).shape[0]
+        data = sqp.qp_at(problem.cost, problem.constraints, z0, z0.new_zeros((1, m)),
+                         torch.full((1,), opts.penalty0, dtype=torch.float64, device=device),
+                         lb, ub, opts, args)
+        out[key] = {
+            "data": data, "qp": ipm.solve_qp_ipm(*data, opts.qp),
+            "iteration": sqp.solve(problem.cost, problem.constraints, z0, lb, ub,
+                                   dataclasses.replace(opts, max_iters=1), args),
+        }
+    cpu, card_ = out["cpu"], out["card"]
+    alone = ipm.solve_qp_ipm(*(a.to(dev) for a in cpu["data"]), opts.qp)
+    torch.cuda.synchronize()
+    pairs = {f"QP data {name}": (c, g) for name, c, g in zip(
+        ("P", "q", "G", "b", "lb", "ub"), cpu["data"], card_["data"])}
+    for name in ("w", "y", "z_lower", "z_upper"):
+        pairs[f"QP {name}"] = (getattr(cpu["qp"], name), getattr(card_["qp"], name))
+        pairs[f"QP alone {name}"] = (getattr(cpu["qp"], name), getattr(alone, name))
+    for name in ("z", "lam", "cost", "constraint_violation"):
+        pairs[f"iteration {name}"] = (getattr(cpu["iteration"], name),
+                                      getattr(card_["iteration"], name))
+    for name, (c, g) in pairs.items():
+        c, g = c.cpu(), g.cpu()
+        finite = torch.isfinite(c)
+        scale = max(1.0, float(c[finite].abs().max()))
+        same_inf = bool(torch.equal(finite, torch.isfinite(g)))
+        err = float((g[finite] - c[finite]).abs().max()) / scale
+        ok = same_inf and err <= DIRCOL_PARITY
+        print(f"[dircol first iteration (phase 18a)] {name} {tuple(c.shape)}: max|f64 card - "
+              f"f64 cpu| / max(1, max|cpu|) = {err:.3e} (<= {DIRCOL_PARITY:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"dircol first iteration: {name} off by {err:.3e} of its scale")
+    its = {k: (int(v["qp"].iterations[0]), int(v["iteration"].iterations[0]))
+           for k, v in out.items()}
+    print(f"[dircol first iteration (phase 18a)] IPM and SQP iterations: cpu {its['cpu']}, "
+          f"card {its['card']}, QP alone on the card {int(alone.iterations[0])}")
+    check(its["cpu"] == its["card"] and int(alone.iterations[0]) == its["cpu"][0],
+          "dircol first iteration: iteration counts differ")
+
+
+def dircol_main_path(torch, pendulum_dircol, dircol, sqp, mk, dev, card):
+    """Phase 18b: examples/pendulum_dircol.py's flow in float64 on the card,
+    with tests/test_dircol.py's gates."""
+    system, problem, x0, xf = pendulum_dircol.build_problem(torch.float64, dev)
+    z0 = problem.initial_guess(x0, xf, pendulum_dircol.TIMESPAN, torch.float64, dev)[None]
+    dircol.solve(problem, system.default_params, z0, sqp.SqpOptions(max_iters=2))  # warm-up
+    torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    out = pendulum_dircol.run(torch.float64, dev)
+    launches = dict(mk.LAUNCHES)
+    sol = out["sol"]
+    viol, h = float(sol.constraint_violation[0]), float(sol.h[0])
+    u_max = float(sol.us.abs().max())
+    end_err = max(float((sol.xs[0, 0] - x0).abs().max()), float((sol.xs[0, -1] - xf).abs().max()))
+    print(f"[dircol swing-up (phase 18b)] float64: solve {out['solve_s']!r} s, "
+          f"{int(sol.iterations[0])} SQP iterations, success={bool(sol.success[0])}, cost "
+          f"{float(sol.cost[0])!r}, viol {viol:.3e}, h {h!r}, |u| max {u_max!r}, end knots "
+          f"off by {end_err:.3e}; closed loop {out['xs'].shape[-2] - 1} steps in "
+          f"{out['track_s']!r} s, final error {out['err']:.3e}; K1-K3 launches "
+          f"{json.dumps(launches)} [{card}]")
+    print("SWING-UP", "SUCCESS" if out["err"] < pendulum_dircol.SUCCESS_ERR else "FAILURE")
+    check(bool(sol.success[0]) and viol < 1e-5, f"dircol: success {bool(sol.success[0])}, "
+          f"viol {viol:.3e}")
+    check(u_max <= 3.0 + 1e-6 and 0.2 - 1e-9 <= h <= 0.5 + 1e-9, f"dircol: |u| {u_max}, h {h}")
+    check(end_err <= 1e-6, f"dircol: end knots off by {end_err:.3e}")
+    check(out["err"] < 1e-3, f"dircol closed loop: final error {out['err']:.3e}")
+    return launches
+
+
+def dircol_bench_phase(torch, bench_dircol_f32, sqp, mk, dev, card):
+    """Phase 18c: the float32 bench's batch of DIRCOL_BATCH cold starts in
+    one call."""
+    mk.reset_launch_counts()
+    res = bench_dircol_f32.run(DIRCOL_BATCH, device=dev)
+    launches = dict(mk.LAUNCHES)
+    print(f"[dircol f32 bench (phase 18c)] batch={DIRCOL_BATCH} in one call: wall "
+          f"{res['wall_s']!r} s, {res['solves_per_s']!r} solves/s, {res['feasible']}/"
+          f"{DIRCOL_BATCH} feasible at viol < {res['feas_tol']} (gate >= "
+          f"{DIRCOL_FEASIBLE_GATE}: the JAX package's CPU float32 count {DIRCOL_JAX_FEASIBLE} "
+          f"on these guesses, {DIRCOL_JAX_FEASIBLE_NUDGED} on them moved -2, -1, +1, +2 "
+          f"ulps), {res['success']} within 10x constraint_tol, "
+          f"SQP iterations max {res['sqp_iterations_max']} median "
+          f"{res['sqp_iterations_median']}, peak memory {res['peak_memory_bytes']} B; K1-K3 "
+          f"launches {json.dumps(launches)} [{card}]")
+    # The Lagrangian Hessian by torch.func over the 32 lanes: its peak memory.
+    system, problem, _, _ = bench_dircol_f32.pendulum_dircol.build_problem(torch.float32, dev)
+    z = res["z0s"]
+    lb, ub = problem.bounds(torch.float32, dev)
+    m = problem.constraints(z[0], system.default_params).shape[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sqp.qp_at(problem.cost, problem.constraints, z, z.new_ones((DIRCOL_BATCH, m)),
+              torch.full((DIRCOL_BATCH,), 10.0, dtype=torch.float32, device=dev), lb, ub,
+              bench_dircol_f32.OPTIONS, (system.default_params,))
+    torch.cuda.synchronize()
+    print(f"[dircol f32 bench (phase 18c)] one iteration's derivatives and QP data at batch "
+          f"{DIRCOL_BATCH}: peak {torch.cuda.max_memory_allocated() - base} B above the "
+          f"{base} B held [{card}]")
+    check(res["finite"], "dircol f32 bench: non-finite solution")
+    check(res["feasible"] >= DIRCOL_FEASIBLE_GATE,
+          f"dircol f32 bench: {res['feasible']}/{DIRCOL_BATCH} feasible, below "
+          f"{DIRCOL_FEASIBLE_GATE}")
+    return launches, res
+
+
+def dircol_profile(torch, bench_dircol_f32, dircol, res, dev, card):
+    """Phase 18d: torch.profiler over PROFILE_SQP_ITERS SQP iterations of the
+    float32 bench's batch, and the batched eigh of its Lagrangian Hessians
+    timed alone."""
+    system, problem, _, _ = bench_dircol_f32.pendulum_dircol.build_problem(torch.float32, dev)
+    z0s = res["z0s"]
+    opts = dataclasses.replace(bench_dircol_f32.OPTIONS, max_iters=PROFILE_SQP_ITERS)
+
+    def run():
+        return dircol.solve(problem, system.default_params, z0s, opts)
+
+    profile_layers(torch, run, PROFILE_SQP_ITERS, DIRCOL_LAYERS, DIRCOL_LAYERS,
+                   f"dircol f32 batch={DIRCOL_BATCH}", "SQP iteration", card,
+                   ("syevj", "syevd", "getrf", "getrs", "laswp"))
+    n = z0s.shape[-1]
+    for dtype, lanes in ((torch.float32, DIRCOL_BATCH), (torch.float64, 1)):
+        H = torch.randn((lanes, n, n), dtype=dtype, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+        H = H + H.mT
+        ms = time_ms(torch, lambda: torch.linalg.eigh(H), KERNEL_REPS)
+        print(f"[profile dircol (phase 18d)] torch.linalg.eigh of {lanes} x {n} x {n} {dtype}: "
+              f"{ms!r} ms a call (back to back, CUDA events) [{card}]")
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -1936,14 +2248,16 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     from drake_tpu_torch import bench
-    from drake_tpu_torch.benchmarks import bench_coupled_mpc, bench_coupled_world, paddle_blob
+    from drake_tpu_torch.benchmarks import (bench_coupled_mpc, bench_coupled_world,
+                                            bench_dircol_f32, bench_quadrotor_mpc, paddle_blob)
     from drake_tpu_torch.control import mpc, mppi
-    from drake_tpu_torch.examples import mpm_bagging, mpm_cloth_demo
+    from drake_tpu_torch.examples import mpm_bagging, mpm_cloth_demo, pendulum_dircol
     from drake_tpu_torch.mpm import cloth, coupling, grid_contact, tiles
     from drake_tpu_torch.mpm import solver as mpm
     from drake_tpu_torch.ops import _build
     from drake_tpu_torch.ops import mpm_kernels as mk
-    from drake_tpu_torch.trajopt import ilqr
+    from drake_tpu_torch.solvers import ipm, sqp
+    from drake_tpu_torch.trajopt import dircol, ilqr
     from drake_tpu_torch.utils.struct import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2183,6 +2497,33 @@ def main(argv) -> int:
     for path, counts in by_path.items():
         if "tiled" in path:
             check(counts["g2p_block"] > 0, f"g2p_block was never launched by {path}")
+
+    phase_start["17"] = time.perf_counter()
+    # ---- 17. the quadrotor obstacle MPC (config 3) ---------------------------
+    torch.cuda.empty_cache()
+    quad_parity(torch, bench_quadrotor_mpc, ilqr, dev, card)
+    by_path["quadrotor MPC, 4096 lanes (phase 17b)"], quad_res = quad_main_path(
+        torch, bench_quadrotor_mpc, mk, dev, card)
+    if "--profile" in argv:
+        quad_profile(torch, bench_quadrotor_mpc, mpc, ilqr, quad_res, dev, card)
+    del quad_res
+    torch.cuda.empty_cache()
+
+    phase_start["18"] = time.perf_counter()
+    # ---- 18. the pendulum dircol (config 1) ----------------------------------
+    dircol_first_iteration(torch, pendulum_dircol, sqp, ipm, dev, card)
+    by_path["pendulum dircol float64 (phase 18b)"] = dircol_main_path(
+        torch, pendulum_dircol, dircol, sqp, mk, dev, card)
+    by_path["dircol f32 bench, 32 lanes (phase 18c)"], dircol_res = dircol_bench_phase(
+        torch, bench_dircol_f32, sqp, mk, dev, card)
+    if "--profile" in argv:
+        dircol_profile(torch, bench_dircol_f32, dircol, dircol_res, dev, card)
+    del dircol_res
+    # The NLP and QP stack asks for full float32 matmuls; nothing turned TF32 on.
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest", "TF32 is on")
+    print("[tf32] torch.backends.cuda.matmul.allow_tf32 False, float32 matmul precision "
+          "'highest' after phases 17-18")
 
     ends = list(phase_start.values())[1:] + [time.perf_counter()]
     print("[phases] seconds of host wall: " + json.dumps(

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -38,7 +37,7 @@ from drake_tpu_torch.multibody import dynamics as dyn
 from drake_tpu_torch.multibody import kinematics as kin
 from drake_tpu_torch.multibody.model import FLOATING, ModelBuilder
 from drake_tpu_torch.trajopt import ilqr
-from drake_tpu_torch.utils.device import resolve_device
+from drake_tpu_torch.utils.device import card, resolve_device
 
 H = 0.04
 HORIZON = 12
@@ -179,14 +178,6 @@ def quality(res: mpc.MpcRolloutResult, x0s, info) -> dict:
         "frozen_steps": int(torch.sum(res.frozen)),
         "rejected_plans": int(torch.sum(res.plans_rejected)),
     }
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:

@@ -22,14 +22,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
 
 from drake_tpu_torch.mpm import solver as mpm
 from drake_tpu_torch.mpm import tiles
-from drake_tpu_torch.utils.device import resolve_device
+from drake_tpu_torch.utils.device import card, resolve_device
 
 PATHS = ("tiled", "fused", "stencil")
 
@@ -57,14 +56,6 @@ def rollout(config, state, path: str, substeps: int, resort: int = 8):
         state = substep(config, state)
         dropped = torch.maximum(dropped, state.dropped)
     return state, dropped
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0].strip()
 
 
 def run(scale: float = 1.0, path: str = "tiled", resort: int = 8, substeps: int = 200,

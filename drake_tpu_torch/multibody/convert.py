@@ -9,14 +9,13 @@ dataclasses.fields(p)}``) and the ``MultibodyModel`` as a dict of its fields
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
 from drake_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
-from drake_tpu_torch.utils.device import resolve_device
+from drake_tpu_torch.utils.struct import from_numpy, to_numpy
 
 
 def params_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
@@ -25,21 +24,12 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
     `dtype` (default: keep the arrays') on `device` (None: the current CUDA
     device, an error without one).  A missing or None ``reflected_inertia``
     stays None, as in the reference."""
-    device = resolve_device(device)
-    values = {}
-    for f in dataclasses.fields(MultibodyParams):
-        a = arrays.get(f.name)
-        values[f.name] = None if a is None else torch.tensor(np.asarray(a), dtype=dtype, device=device)
-    return MultibodyParams(**values)
+    return from_numpy(MultibodyParams, arrays, device, dtype)
 
 
 def params_to_numpy(params: MultibodyParams) -> dict:
     """The inverse of ``params_from_numpy``."""
-    return {
-        f.name: None if getattr(params, f.name) is None
-        else getattr(params, f.name).detach().cpu().numpy()
-        for f in dataclasses.fields(params)
-    }
+    return to_numpy(params)
 
 
 def model_from_fields(fields: Mapping) -> MultibodyModel:

@@ -7,6 +7,7 @@ a silent CPU tensor.
 
 from __future__ import annotations
 
+import subprocess
 from typing import Union
 
 import torch
@@ -42,3 +43,11 @@ def constant(values, like: torch.Tensor) -> torch.Tensor:
     if t is None:
         t = _CONSTANTS[key] = torch.tensor(values, dtype=like.dtype, device=like.device)
     return t
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0].strip()

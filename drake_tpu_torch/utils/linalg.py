@@ -25,7 +25,13 @@ def cho_solve(L, b):
 
 
 def solve(A, b):
-    """Solve A x = b for vectors b (..., n) by LU; NaN where A is singular."""
+    """Solve A x = b for vectors b (..., n) by LU; NaN where A is singular.
+
+    A and b are expanded to their common batch shape first: the backward of
+    a solve whose A broadcasts over b's batch fails under ``torch.func.vmap``."""
+    batch = torch.broadcast_shapes(A.shape[:-2], b.shape[:-1])
+    A = A.expand(batch + A.shape[-2:])
+    b = b.expand(batch + b.shape[-1:])
     x, info = torch.linalg.solve_ex(A, b.unsqueeze(-1))
     return torch.where((info == 0)[..., None], x.squeeze(-1), torch.nan)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import TypeVar
 
+import numpy as np
 import torch
 
 _T = TypeVar("_T")
@@ -67,3 +68,25 @@ def tree_map(fn, *trees):
         items = [tree_map(fn, *parts) for parts in zip(*trees)]
         return type(first)(*items) if hasattr(first, "_fields") else tuple(items)
     return first
+
+
+def from_numpy(cls, arrays, device=None, dtype: torch.dtype = None):
+    """A tensor dataclass `cls` from numpy arrays of its fields (copied), as
+    `dtype` (default: keep the arrays') on `device` (None: the current CUDA
+    device, an error without one).  A missing or None field stays None."""
+    from drake_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    return cls(**{
+        f.name: None if arrays.get(f.name) is None
+        else torch.tensor(np.asarray(arrays[f.name]), dtype=dtype, device=device)
+        for f in dataclasses.fields(cls)
+    })
+
+
+def to_numpy(obj) -> dict:
+    """The inverse of ``from_numpy``: {field: numpy array or None}."""
+    return {
+        f.name: None if getattr(obj, f.name) is None else getattr(obj, f.name).detach().cpu().numpy()
+        for f in dataclasses.fields(obj)
+    }

@@ -65,6 +65,18 @@ PORT_MODULES = (
     "drake_tpu_torch.geometry.shapes",
     "drake_tpu_torch.geometry.scene",
     "drake_tpu_torch.systems.base",
+    "drake_tpu_torch.systems.integrators",
+    "drake_tpu_torch.systems.simulator",
+    "drake_tpu_torch.models.quadrotor",
+    "drake_tpu_torch.models.pendulum",
+    "drake_tpu_torch.solvers",
+    "drake_tpu_torch.solvers.ipm",
+    "drake_tpu_torch.solvers.sqp",
+    "drake_tpu_torch.trajopt.dircol",
+    "drake_tpu_torch.examples.pendulum_dircol",
+    "drake_tpu_torch.examples.quadrotor_mpc",
+    "drake_tpu_torch.benchmarks.bench_quadrotor_mpc",
+    "drake_tpu_torch.benchmarks.bench_dircol_f32",
     "drake_tpu_torch.contact.sap",
     "drake_tpu_torch.contact.plant",
     "drake_tpu_torch.contact.coupled_plant",
@@ -119,7 +131,7 @@ def test_collecting_port_tests_loads_no_torch():
         "import test_torch_mpm_kernels, test_torch_mpm_solver, test_torch_package, "
         "test_torch_multibody, test_torch_contact, test_torch_mpc, test_torch_coupled, "
         "test_torch_mppi, test_torch_grid_contact, test_torch_cloth, test_torch_tiles, "
-        "test_torch_tiles_contact"
+        "test_torch_tiles_contact, test_torch_systems, test_torch_quadrotor, test_torch_dircol"
     )
     loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
     assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
@@ -355,3 +367,45 @@ def test_device_cpu_is_honoured(name, device):
     for f in dataclasses.fields(got):
         assert getattr(got, f.name).device == want, f.name
     assert got.dropped.dtype == torch.int32 and int(got.dropped) == 0
+
+
+def _nlp_entry_points():
+    """name -> callable(device) returning a tensor, for the entry points of
+    the quadrotor MPC and the pendulum dircol."""
+    import torch
+
+    from drake_tpu_torch.benchmarks import bench_quadrotor_mpc
+    from drake_tpu_torch.examples import pendulum_dircol
+    from drake_tpu_torch.models import pendulum, quadrotor
+
+    return {
+        "quadrotor.default_params": lambda device: quadrotor.default_params(device=device).mass,
+        "pendulum.default_params": lambda device: pendulum.default_params(device=device).mass,
+        "pendulum_dircol.build_problem": lambda device: pendulum_dircol.build_problem(
+            device=device)[2],
+        "DircolProblem.bounds": lambda device: pendulum_dircol.build_problem(
+            device="cpu")[1].bounds(torch.float64, device)[0],
+        "bench_quadrotor_mpc.build": lambda device: bench_quadrotor_mpc.build(
+            device=device)["us0"],
+    }
+
+
+NLP_ENTRY_POINTS = ["quadrotor.default_params", "pendulum.default_params",
+                    "pendulum_dircol.build_problem", "DircolProblem.bounds",
+                    "bench_quadrotor_mpc.build"]
+
+
+@pytest.mark.parametrize("name", NLP_ENTRY_POINTS)
+def test_nlp_entry_points_default_to_the_card(name):
+    """With no `device` the quadrotor's and the dircol's entry points place
+    their tensors on the current CUDA device, and raise without one; with
+    ``"cpu"`` they stay on the CPU."""
+    import torch
+
+    make = _nlp_entry_points()[name]
+    assert make("cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert make(None).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(None)
