@@ -5,7 +5,8 @@ substep (slice 1), the batched iiwa contact-implicit MPC of bench.py (slice
 BASELINE config 5), that world with the dense implicit grid contact, the
 codimensional cloth's bagging demo, the tile pipeline, the world with
 the implicit grid contact on the tile pipeline (the default of "implicit"),
-the quadrotor obstacle MPC (config 3) and the pendulum dircol (config 1).
+the quadrotor obstacle MPC (config 3), the pendulum dircol (config 1) and
+the acrobot swing-up with TV-LQR (config 2) with the LQR family's examples.
 Run from the root of a checkout, on a machine with one
 NVIDIA GPU:
 
@@ -192,8 +193,9 @@ Then the two NLP and MPC configs of slice 3b, which reach none of K1-K3
        the CPU's QP solved on the card, the whole iteration, and their
        iteration counts;
     b. ``examples/pendulum_dircol.py``'s flow in float64 on the card (the
-       Sl1QP solve, PD tracking through ``simulate_controlled``), with
-       tests/test_dircol.py's gates, printing ``SWING-UP SUCCESS``;
+       Sl1QP solve, PD tracking through ``simulate_controlled``, its steps
+       replayed as a CUDA graph and held against the eager loop bit for
+       bit), with tests/test_dircol.py's gates, printing ``SWING-UP SUCCESS``;
     c. ``bench_dircol_f32``'s 32 cold starts in float32 in one call:
        solves/s and the feasible count, gated by the JAX package's CPU
        float32 counts on the same guesses moved by up to 2 ulps (the count
@@ -202,6 +204,24 @@ Then the two NLP and MPC configs of slice 3b, which reach none of K1-K3
     d. with ``--profile``, ``sqp.derivatives``, ``ipm.solve`` and
        ``sqp.line_search`` per SQP iteration, and the batched ``eigh``
        timed alone.
+
+Then config 2 and the LQR family (``drake_tpu_torch.examples``), which reach
+none of K1-K3 either:
+
+19. a. card float64 against CPU float64 within 1e-9 of scale: the CARE,
+       DARE and both Lyapunov solvers over 64 seeded systems, the LQR of
+       the acrobot, the cart-pole and the quadrotor at their fixed points,
+       and a TV-LQR (S, K, k0) about a passive acrobot swing;
+    b. ``examples/acrobot_swingup.py``'s stages in float64 (iLQR, dircol,
+       TV-LQR, the closed loop), each stage's seconds and iterations, the
+       closed loop's CUDA graph against the eager loop over its first
+       steps, and the example's gate, printing ``SWINGUP+TVLQR SUCCESS``;
+    c. in float32 at their full widths, each with its own gates and wall
+       time: ``cart_pole_lqr`` (256 lanes), ``acrobot_spong`` (1, then 64
+       lanes), ``acrobot_lqr_estimator`` and ``acrobot_spong_optimize``
+       (32 x 8 = 256 lanes; ``--iters`` cut to 1);
+    d. with ``--profile``, one iLQR iteration, one SQP iteration, the TV-LQR
+       solve and one closed-loop step (CUDA graph and eager).
 
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -489,6 +509,25 @@ DIRCOL_JAX_FEASIBLE_NUDGED = (16, 14, 13, 17)
 DIRCOL_FEASIBLE_GATE = min((DIRCOL_JAX_FEASIBLE,) + DIRCOL_JAX_FEASIBLE_NUDGED)
 PROFILE_SQP_ITERS = 4
 DIRCOL_LAYERS = ("sqp.derivatives", "ipm.solve", "sqp.line_search")
+
+# Config 2 and the LQR family (phase 19; drake_tpu_torch.examples
+# acrobot_swingup, cart_pole_lqr, acrobot_spong, acrobot_spong_optimize and
+# acrobot_lqr_estimator).  They reach none of K1-K3: their dense algebra is
+# library calls (LU, lstsq, matrix_exp, eigh) and small elementwise ops.
+LQR_PARITY = 1e-9  # 19a: card float64 against CPU float64, of the scale
+LQR_PARITY_SYSTEMS = 64
+# 19b: the JAX example on a CPU (JAX_PLATFORMS=cpu python
+# tests/acrobot_reference.py --jax): 118 iLQR iterations, 300 SQP
+# iterations (success on the violation, 6.8e-08), closed-loop error
+# 9.00e-04 against the example's gate of 1e-3.
+SWINGUP_JAX_CPU_ERR = 9.00e-4
+SWINGUP_JAX_CPU_ITERS = (118, 300)
+GRAPH_CHECK_STEPS = 200  # 19b: the closed loop's CUDA graph against eager
+CEM_ITERS = 1  # 19c: acrobot_spong_optimize's --iters, cut from 4
+PROFILE_ILQR_ITERS = 4
+PROFILE_LOOP_STEPS = 200
+ILQR_LAYERS = ("ilqr.linearize", "ilqr.riccati", "ilqr.forward")
+TVLQR_LAYERS = ("tvlqr.linearize", "tvlqr.expm", "tvlqr.backward")
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -2175,6 +2214,12 @@ def dircol_main_path(torch, pendulum_dircol, dircol, sqp, mk, dev, card):
     check(u_max <= 3.0 + 1e-6 and 0.2 - 1e-9 <= h <= 0.5 + 1e-9, f"dircol: |u| {u_max}, h {h}")
     check(end_err <= 1e-6, f"dircol: end knots off by {end_err:.3e}")
     check(out["err"] < 1e-3, f"dircol closed loop: final error {out['err']:.3e}")
+    with torch.enable_grad():  # autograd on: utils.scan runs the eager loop
+        eager = pendulum_dircol.track(system, sol, x0[None])
+    diff = max(float((g - e).abs().max()) for g, e in zip(out["xs"], eager[0]))
+    print(f"[dircol swing-up (phase 18b)] the closed loop, CUDA graph against eager: max "
+          f"|difference| in x {diff!r} (== 0)")
+    check(diff == 0.0, f"dircol: the graphed closed loop is {diff!r} off the eager one")
     return launches
 
 
@@ -2239,6 +2284,222 @@ def dircol_profile(torch, bench_dircol_f32, dircol, res, dev, card):
               f"{ms!r} ms a call (back to back, CUDA events) [{card}]")
 
 
+def random_stabilizable(torch, lanes, n=4, m=2, seed=SEED):
+    """`lanes` seeded systems as in tests/test_torch_control.py: A, B with
+    entries N(0, 1), Q = C'C / n + 0.1 I, R = D'D / m + 0.5 I, float64 CPU."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, dtype=torch.float64, generator=gen)
+
+    A, B, C, D = randn(lanes, n, n), randn(lanes, n, m), randn(lanes, n, n), randn(lanes, m, m)
+    eye = lambda k: torch.eye(k, dtype=torch.float64)  # noqa: E731
+    return A, B, C.mT @ C / n + 0.1 * eye(n), D.mT @ D / m + 0.5 * eye(m)
+
+
+def lqr_parity_values(torch, device):
+    """Phase 19a's quantities on `device` in float64, as {name: CPU tensor}:
+    the Riccati and Lyapunov solvers over LQR_PARITY_SYSTEMS systems, the
+    upright and hover LQRs of the acrobot, the cart-pole and the quadrotor,
+    and a TV-LQR (S, K, k0) about a passive acrobot swing with a desired
+    state off it."""
+    from drake_tpu_torch.control import lqr
+    from drake_tpu_torch.math import riccati
+    from drake_tpu_torch.models import acrobot, cart_pole, quadrotor
+    from drake_tpu_torch.systems import simulator
+
+    A, B, Q, R = (a.to(device) for a in random_stabilizable(torch, LQR_PARITY_SYSTEMS))
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=torch.float64, device=device)
+    radius = torch.linalg.eigvals(A).abs().amax(-1)[:, None, None]
+    out = {"solve_care": riccati.solve_care(A, B, Q, R),
+           "solve_dare": riccati.solve_dare(0.5 * A, B, Q, R),
+           "lyapunov continuous": riccati.solve_lyapunov_continuous(A - (radius + 0.5) * eye, Q),
+           "lyapunov discrete": riccati.solve_lyapunov_discrete(0.8 * A / radius, Q)}
+    f64 = dict(dtype=torch.float64, device=device)
+    for name, model, x0, u0, Qd, Rd in (
+            ("acrobot", acrobot, acrobot.upright_state(torch.float64, device), None,
+             (10.0, 10.0, 1.0, 1.0), (1.0,)),
+            ("cart-pole", cart_pole, cart_pole.upright_state(torch.float64, device), None,
+             (100.0, 50.0, 5.0, 5.0), (1.0,)),
+            ("quadrotor", quadrotor, torch.zeros(12, **f64), "hover",
+             (10.0,) * 6 + (1.0,) * 6, (0.1,) * 4)):
+        p = model.default_params(torch.float64, device)
+        u = quadrotor.hover_input(p) if u0 == "hover" else torch.zeros(1, **f64)
+        res = lqr.lqr_for_system(model.make_system(p), p, x0, u, torch.diag(torch.tensor(Qd, **f64)),
+                                 torch.diag(torch.tensor(Rd, **f64)))
+        out[f"{name} K"], out[f"{name} S"] = res.K, res.S
+    p = acrobot.default_params(torch.float64, device)
+    system = acrobot.make_system(p)
+    with torch.no_grad():
+        xs, _ = simulator.simulate(system, p, torch.tensor([1.2, -0.4, 0.0, 0.0], **f64),
+                                      torch.zeros((300, 1), **f64), 0.01)
+    Qa = torch.diag(torch.tensor((10.0, 10.0, 1.0, 1.0), **f64))
+    tv = lqr.finite_horizon_lqr(system, p, Qa, torch.ones((1, 1), **f64), 0.0, 3.0, 300,
+                                x0_traj=xs, u0_traj=torch.zeros((301, 1), **f64), Qf=Qa,
+                                xd_traj=xs + 0.05)
+    out.update({"TV-LQR S": tv.S, "TV-LQR K": tv.K, "TV-LQR k0": tv.k0})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def lqr_parity(torch, dev, card):
+    """Phase 19a: card float64 against CPU float64 within LQR_PARITY of the
+    scale."""
+    ref = lqr_parity_values(torch, torch.device("cpu"))
+    got = lqr_parity_values(torch, dev)
+    for name, r in ref.items():
+        g = got[name]
+        scale = max(1.0, float(r.abs().max()))
+        err = float((g - r).abs().max()) / scale
+        ok = bool(torch.isfinite(g).all()) and err <= LQR_PARITY
+        print(f"[lqr parity (phase 19a)] {name} {tuple(r.shape)}: max|f64 card - f64 cpu| / "
+              f"max(1, max|cpu|) = {err:.3e} (<= {LQR_PARITY:.0e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"lqr parity: {name} off by {err:.3e} of its scale")
+
+
+def swingup_phase(torch, acrobot_swingup, mk, dev, card):
+    """Phase 19b: examples/acrobot_swingup.py's four stages in float64 on
+    the card, with the example's gate; the closed loop's CUDA graph held
+    against the eager loop over its first GRAPH_CHECK_STEPS steps."""
+    mk.reset_launch_counts()
+    out = acrobot_swingup.run(dev)
+    launches = dict(mk.LAUNCHES)
+    warm, sol, s = out["warm"], out["sol"], out["seconds"]
+    xf = out["xf"]
+    print(f"[swing-up (phase 19b)] float64 iLQR: {int(warm.iterations[0])} iterations, final "
+          f"error {float(torch.linalg.vector_norm(warm.xs[0, -1] - xf))!r}, {s['ilqr']!r} s; "
+          f"dircol: {int(sol.iterations[0])} SQP iterations, success={bool(sol.success[0])}, "
+          f"viol {float(sol.constraint_violation[0]):.3e}, cost {float(sol.cost[0])!r}, "
+          f"T {float(sol.h[0]) * (acrobot_swingup.KNOTS - 1)!r} s, {s['dircol']!r} s (the JAX "
+          f"package on a CPU: {SWINGUP_JAX_CPU_ITERS[0]} and {SWINGUP_JAX_CPU_ITERS[1]} "
+          f"iterations) [{card}]")
+    check(bool(sol.success[0]), f"swing-up: dircol failed, viol "
+          f"{float(sol.constraint_violation[0]):.3e} after {int(sol.iterations[0])} iterations")
+    steps = out["xs"].shape[-2] - 1
+    print(f"[swing-up (phase 19b)] TV-LQR ({acrobot_swingup.N_GRID + 1} knots) {s['tvlqr']!r} s; "
+          f"closed loop {steps} steps in {s['closed_loop']!r} s "
+          f"({s['closed_loop'] / steps * 1e3!r} ms a step, CUDA graph), final error "
+          f"{out['err']:.3e} (the JAX package on a CPU: {SWINGUP_JAX_CPU_ERR:.2e}; gate "
+          f"< {acrobot_swingup.SUCCESS_ERR:.0e}); K1-K3 launches {json.dumps(launches)} [{card}]")
+    x_init = (out["x0"] + torch.tensor(acrobot_swingup.PERTURB, dtype=torch.float64,
+                                       device=dev))[None]
+    args = (out["system"], x_init, xf, out["T"], out["bal"], out["tvlqr"], GRAPH_CHECK_STEPS)
+    with torch.no_grad():
+        graphed = acrobot_swingup.closed_loop(*args)
+    with torch.enable_grad():  # autograd on: utils.scan runs the eager loop
+        eager = acrobot_swingup.closed_loop(*args)
+    diff = max(float((g - e).abs().max()) for g, e in zip(graphed, eager))
+    print(f"[swing-up (phase 19b)] the closed loop's first {GRAPH_CHECK_STEPS} steps, CUDA graph "
+          f"against eager: max |difference| in x and u {diff!r} (== 0)")
+    check(diff == 0.0, f"swing-up: the graphed closed loop is {diff!r} off the eager one")
+    ok = out["err"] < acrobot_swingup.SUCCESS_ERR
+    print("SWINGUP+TVLQR", "SUCCESS" if ok else "FAILURE")
+    check(ok, f"swing-up: closed-loop final error {out['err']:.3e}")
+    return launches, out
+
+
+def family_phase(torch, examples, mk, dev, card):
+    """Phase 19c: the LQR family's examples at their full widths in float32
+    on the card, each with its own gates and its wall time."""
+    cart_pole_lqr, acrobot_spong, acrobot_lqr_estimator, acrobot_spong_optimize = examples
+    by_path = {}
+
+    def timed(name, fn):
+        mk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[f"{name} (phase 19c)"] = dict(mk.LAUNCHES)
+        return out, time.perf_counter() - t0
+
+    out, wall = timed("cart-pole LQR, 256 lanes", lambda: cart_pole_lqr.run(torch.float32, dev))
+    ok = cart_pole_lqr.gates(out)
+    print(f"[cart-pole lqr (phase 19c)] float32: closed-loop error {out['err_cl']:.3e} (< 1e-2), "
+          f"open-loop {out['err_ol']!r} (> 0.5), basin {out['n_stable']}/{out['lanes']} "
+          f"recovered (> 200); sweep of {out['lanes']} lanes x {cart_pole_lqr.STEPS} steps "
+          f"{out['sweep_s']!r} s ({out['lanes'] / out['sweep_s']!r} lanes/s), wall {wall!r} s "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "cart-pole LQR: a gate failed")
+
+    out, wall = timed("acrobot Spong, 1 + 64 lanes", lambda: acrobot_spong.run(torch.float32, dev))
+    ok = acrobot_spong.gates(out)
+    sec = out["seconds"]
+    print(f"[acrobot spong (phase 19c)] float32: single swing-up error {out['err']:.3e} (< 1e-2) "
+          f"in {sec['single']!r} s; {out['n_up']}/{out['batch']} upright (>= 90%), max error "
+          f"{float(out['errs'].max()):.3e}, {acrobot_spong.STEPS} steps in {sec['batch']!r} s "
+          f"({out['batch'] / sec['batch']!r} lanes/s); |u| max {out['u_max']!r}; wall {wall!r} s "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "acrobot Spong: a gate failed")
+
+    out, wall = timed("acrobot LQR + estimator", lambda: acrobot_lqr_estimator.run(torch.float32,
+                                                                                    dev))
+    ok = acrobot_lqr_estimator.gates(out)
+    print(f"[acrobot lqr estimator (phase 19c)] float32: final state error "
+          f"{out['err_final']:.3e}, estimate error {out['est_err']:.3e} (both < 5e-2), "
+          f"{acrobot_lqr_estimator.STEPS} steps in {out['seconds']!r} s, wall {wall!r} s "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "acrobot LQR with estimator: a gate failed")
+
+    out, wall = timed("Spong CEM, 32 x 8 lanes", lambda: acrobot_spong_optimize.run(
+        torch.float32, dev, iters=CEM_ITERS))
+    ok = acrobot_spong_optimize.gates(out)
+    print(f"[acrobot spong optimize (phase 19c)] float32, {acrobot_spong_optimize.SCENARIOS} "
+          f"scenarios x {acrobot_spong_optimize.CANDIDATES} candidates = {out['lanes']} lanes in "
+          f"one call, --iters {CEM_ITERS}: default gains' cost {out['base_cost']!r}, best "
+          f"{out['best_cost']!r} (<= default + 1e-6 and < 1.0) at gains "
+          f"{out['best_gains'].tolist()}; ensemble calls {[round(v, 3) for v in out['seconds']]} s "
+          f"({out['lanes'] / out['seconds'][-1]!r} lanes/s at {acrobot_spong_optimize.STEPS} "
+          f"steps), wall {wall!r} s {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "Spong CEM: a gate failed")
+    return by_path
+
+
+def swingup_profile(torch, acrobot_swingup, ilqr, lqr, out, dev, card):
+    """Phase 19d: torch.profiler over PROFILE_ILQR_ITERS iLQR iterations,
+    PROFILE_SQP_ITERS SQP iterations, the TV-LQR solve and PROFILE_LOOP_STEPS
+    closed-loop steps (CUDA graph, then eager) of the swing-up in float64."""
+    system, x0, xf = out["system"], out["x0"], out["xf"]
+    params = system.default_params
+    problem = acrobot_swingup.dircol_problem(system, x0, xf)
+
+    def run_ilqr():
+        with torch.no_grad():
+            return acrobot_swingup.warm_start(system, x0[None], xf, ilqr.IlqrOptions(
+                max_iters=PROFILE_ILQR_ITERS, tol=1e-9))
+
+    profile_layers(torch, run_ilqr, PROFILE_ILQR_ITERS, ILQR_LAYERS, ILQR_LAYERS,
+                   "swing-up iLQR", "iLQR iteration", card)
+
+    def run_sqp():
+        return acrobot_swingup.polish(problem, out["z0"], dataclasses.replace(
+            acrobot_swingup.SQP_OPTIONS, max_iters=PROFILE_SQP_ITERS))
+
+    profile_layers(torch, run_sqp, PROFILE_SQP_ITERS, DIRCOL_LAYERS, DIRCOL_LAYERS,
+                   "swing-up dircol", "SQP iteration", card, ("syevj", "syevd", "getrf"))
+    tv = out["tvlqr"]
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def run_tvlqr():
+        with torch.no_grad():
+            return lqr.finite_horizon_lqr(
+                system, params, torch.diag(torch.tensor(acrobot_swingup.Q_DIAG, **f64)),
+                torch.ones((1, 1), **f64), 0.0, out["T"], acrobot_swingup.N_GRID, x0_traj=tv.x0,
+                u0_traj=tv.u0, Qf=out["bal"].S)
+
+    profile_layers(torch, run_tvlqr, 1, TVLQR_LAYERS, TVLQR_LAYERS, "swing-up TV-LQR",
+                   "TV-LQR solve", card, ("matrix_exp", "getrf", "getrs"))
+    x_init = (x0 + torch.tensor(acrobot_swingup.PERTURB, dtype=torch.float64, device=dev))[None]
+    args = (system, x_init, xf, out["T"], out["bal"], tv, PROFILE_LOOP_STEPS)
+    for mode, grad in (("CUDA graph", False), ("eager", True)):
+        def run_loop():
+            with torch.set_grad_enabled(grad):
+                return acrobot_swingup.closed_loop(*args)
+
+        profile_layers(torch, run_loop, PROFILE_LOOP_STEPS, (), (),
+                       f"swing-up closed loop ({mode})", "closed-loop step", card)
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -2250,8 +2511,10 @@ def main(argv) -> int:
     from drake_tpu_torch import bench
     from drake_tpu_torch.benchmarks import (bench_coupled_mpc, bench_coupled_world,
                                             bench_dircol_f32, bench_quadrotor_mpc, paddle_blob)
-    from drake_tpu_torch.control import mpc, mppi
-    from drake_tpu_torch.examples import mpm_bagging, mpm_cloth_demo, pendulum_dircol
+    from drake_tpu_torch.control import lqr, mpc, mppi
+    from drake_tpu_torch.examples import (acrobot_lqr_estimator, acrobot_spong,
+                                          acrobot_spong_optimize, acrobot_swingup, cart_pole_lqr,
+                                          mpm_bagging, mpm_cloth_demo, pendulum_dircol)
     from drake_tpu_torch.mpm import cloth, coupling, grid_contact, tiles
     from drake_tpu_torch.mpm import solver as mpm
     from drake_tpu_torch.ops import _build
@@ -2524,6 +2787,18 @@ def main(argv) -> int:
           and torch.get_float32_matmul_precision() == "highest", "TF32 is on")
     print("[tf32] torch.backends.cuda.matmul.allow_tf32 False, float32 matmul precision "
           "'highest' after phases 17-18")
+    torch.cuda.empty_cache()
+
+    phase_start["19"] = time.perf_counter()
+    # ---- 19. config 2 (the acrobot swing-up) and the LQR family -------------
+    lqr_parity(torch, dev, card)
+    by_path["acrobot swing-up float64 (phase 19b)"], swingup = swingup_phase(
+        torch, acrobot_swingup, mk, dev, card)
+    by_path.update(family_phase(torch, (cart_pole_lqr, acrobot_spong, acrobot_lqr_estimator,
+                                        acrobot_spong_optimize), mk, dev, card))
+    if "--profile" in argv:
+        swingup_profile(torch, acrobot_swingup, ilqr, lqr, swingup, dev, card)
+    del swingup
 
     ends = list(phase_start.values())[1:] + [time.perf_counter()]
     print("[phases] seconds of host wall: " + json.dumps(

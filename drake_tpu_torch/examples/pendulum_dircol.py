@@ -91,7 +91,8 @@ def run(dtype=torch.float64, device=None, options: SqpOptions = SqpOptions()) ->
     sync()
     t_solve = time.perf_counter() - t0
     t0 = time.perf_counter()
-    xs, us, ts = track(system, sol, x0[None])
+    with torch.no_grad():  # on the card, utils.scan replays a step as a CUDA graph
+        xs, us, ts = track(system, sol, x0[None])
     sync()
     t_track = time.perf_counter() - t0
     err = float(torch.linalg.vector_norm(xs[0, -1] - xf))

@@ -68,6 +68,11 @@ def _mv(M, x):
 
 
 def _inf_norm(x):
+    """max |x| over the last axis, and 0 over an empty one (a problem with no
+    equality rows), as the reference's ``norm(., inf)``: ``torch.amax``
+    raises on an empty axis."""
+    if x.shape[-1] == 0:
+        return x.new_zeros(x.shape[:-1])
     return torch.amax(torch.abs(x), dim=-1)
 
 
@@ -81,15 +86,15 @@ def _ruiz_equilibrate(P, q, G, b, lb, ub, sweeps: int):
     P_, q_, G_ = P, q, G
     for _ in range(sweeps):
         # Row inf-norms of the scaled KKT matrix [[P, G'], [G, 0]].
-        rn = torch.maximum(torch.amax(torch.abs(P_), dim=-1), torch.amax(torch.abs(G_), dim=-2))
-        rm = torch.amax(torch.abs(G_), dim=-1)
+        rn = torch.maximum(_inf_norm(P_), _inf_norm(G_.mT))
+        rm = _inf_norm(G_)
         sd = 1.0 / torch.sqrt(torch.clamp(rn, 1e-12, 1e12))
         se = 1.0 / torch.sqrt(torch.clamp(rm, 1e-12, 1e12))
         P_ = sd[..., :, None] * P_ * sd[..., None, :]
         q_ = sd * q_
         G_ = se[..., :, None] * G_ * sd[..., None, :]
         # Cost normalization: gamma = 1/max(mean column norm of P, |q|).
-        col = torch.mean(torch.amax(torch.abs(P_), dim=-2), dim=-1)
+        col = torch.mean(_inf_norm(P_.mT), dim=-1)
         gamma = 1.0 / torch.clamp(torch.maximum(col, _inf_norm(q_)), 1e-8, 1e8)
         P_ = gamma[..., None, None] * P_
         q_ = gamma[..., None] * q_

@@ -39,7 +39,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
-from drake_tpu_torch.solvers.ipm import _CHECK_EVERY, IpmOptions, solve_qp_ipm
+from drake_tpu_torch.solvers.ipm import _CHECK_EVERY, IpmOptions, _inf_norm, solve_qp_ipm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,7 +223,7 @@ def solve(
                 improved = phis.gather(1, k[:, None])[:, 0] <= phi0
                 alpha = torch.where(improved, alpha, 0.0)
                 z_new = torch.clamp(z + alpha[:, None] * d, lb, ub)
-                viol_new = torch.amax(torch.abs(vc(z_new)), dim=-1)
+                viol_new = _inf_norm(vc(z_new))
 
             # Steering rule: raise nu only when the slacks are materially active
             # and feasibility stalled.
@@ -231,7 +231,7 @@ def solve(
             stalled = viol_new > 0.9 * viol
             nu_new = torch.where(slacks_active & stalled,
                                  torch.clamp_max(nu * opts.penalty_factor, opts.penalty_max), nu)
-            step_len = alpha * torch.amax(torch.abs(d), dim=-1)
+            step_len = alpha * _inf_norm(d)
             done_new = (viol_new <= opts.constraint_tol) & (alpha >= 1.0) & (step_len <= opts.opt_tol)
 
             z = torch.where(active[:, None], z_new, z)

@@ -2,10 +2,11 @@
 
 The PyTorch counterpart of the fixed-step part of
 ``drake_tpu/systems/simulator.py``.  The reference's ``lax.scan`` rollouts
-are Python loops; the lanes of a batch ride in the leading dimensions of
-``x0`` and of the inputs, so ``batch_simulate`` is ``simulate`` on batched
-tensors.  The time is carried as the reference carries it: a tensor of the
-state's type to which each step adds ``dt``.
+are Python loops, the closed loop's through ``utils.scan`` (one CUDA graph
+of a step, replayed, on the card); the lanes of a batch ride in the leading
+dimensions of ``x0`` and of the inputs, so ``batch_simulate`` is
+``simulate`` on batched tensors.  The time is carried as the reference
+carries it: a tensor of the state's type to which each step adds ``dt``.
 
 Not ported yet (ROADMAP.md item 22): the error-controlled
 ``simulate_adaptive``, the witness functions and hybrid resets
@@ -22,6 +23,7 @@ import torch
 
 from drake_tpu_torch.systems import integrators as _integrators
 from drake_tpu_torch.systems.base import ContinuousSystem, DiscreteSystem
+from drake_tpu_torch.utils.scan import scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,19 +60,25 @@ def simulate_controlled(system: ContinuousSystem, params, x0, policy: Callable, 
                         dt, t0=0.0, method: str = "rk4", policy_state=None):
     """Closed-loop rollout: u = policy(policy_state, x, t) each step.
 
-    ``policy`` may return either ``u`` or ``(u, new_policy_state)``.
+    ``policy`` may return either ``u`` or ``(u, new_policy_state)``.  On the
+    card with autograd off, the step is replayed as a CUDA graph
+    (``utils.scan``): the policy must then keep to what a graph captures,
+    and a policy state be a tensor.
     Returns (xs (..., N+1, nx), us (..., N, nu), ts (N+1,))."""
     step = _integrators.get(method)
-    x, t, ps = x0, torch.tensor(t0, dtype=x0.dtype, device=x0.device), policy_state
-    xs, us = [x0], []
-    for _ in range(num_steps):
-        out = policy(ps, x, t)
-        u, ps = out if isinstance(out, tuple) else (out, ps)
+
+    def body(carry):
+        x, t, *ps = carry
+        out = policy(ps[0] if ps else None, x, t)
+        u, ps = (out[0], [out[1]]) if isinstance(out, tuple) else (out, ps)
         x = step(system.f, params, x, u, t, dt)
-        t = t + dt
-        xs.append(x)
-        us.append(u)
-    return torch.stack(xs, dim=-2), torch.stack(us, dim=-2), _times(t0, dt, num_steps, x0)
+        return (x, t + dt, *ps), (x, u)
+
+    t = torch.tensor(t0, dtype=x0.dtype, device=x0.device)
+    carry = (x0, t) if policy_state is None else (x0, t, policy_state)
+    _, (xs, us) = scan(body, carry, num_steps)
+    return (torch.cat([x0.unsqueeze(-2), xs.movedim(0, -2)], dim=-2), us.movedim(0, -2),
+            _times(t0, dt, num_steps, x0))
 
 
 def simulate_discrete(system: DiscreteSystem, params, x0, u_sequence, t0=0.0):

@@ -40,3 +40,14 @@ def solve_matrix(A, B):
     """Solve A X = B for matrices B (..., n, k) by LU; NaN where A is singular."""
     X, info = torch.linalg.solve_ex(A, B)
     return torch.where((info == 0)[..., None, None], X, torch.nan)
+
+
+def solve_spd_2x2(m11, m12, m22, r0, r1):
+    """Solve [[m11, m12], [m12, m22]] x = [r0, r1] lane by lane, the matrix
+    symmetric positive definite (a 2-dof mass matrix), by elimination on
+    m11: the LU factorization without a pivot, which such a matrix never
+    needs.  Elementwise ops only, so that a closed-loop step stays a handful
+    of small kernels that a CUDA graph can replay.  Returns (x0, x1)."""
+    l = m12 / m11
+    x1 = (r1 - l * r0) / (m22 - l * m12)
+    return (r0 - m12 * x1) / m11, x1

@@ -101,6 +101,18 @@ PORT_MODULES = (
     "drake_tpu_torch.utils.device",
     "drake_tpu_torch.utils.linalg",
     "drake_tpu_torch.utils.struct",
+    "drake_tpu_torch.utils.scan",
+    "drake_tpu_torch.models.acrobot",
+    "drake_tpu_torch.models.cart_pole",
+    "drake_tpu_torch.math.riccati",
+    "drake_tpu_torch.control.lqr",
+    "drake_tpu_torch.control.energy_shaping",
+    "drake_tpu_torch.control.estimators",
+    "drake_tpu_torch.examples.acrobot_swingup",
+    "drake_tpu_torch.examples.cart_pole_lqr",
+    "drake_tpu_torch.examples.acrobot_spong",
+    "drake_tpu_torch.examples.acrobot_spong_optimize",
+    "drake_tpu_torch.examples.acrobot_lqr_estimator",
 )
 
 
@@ -131,7 +143,8 @@ def test_collecting_port_tests_loads_no_torch():
         "import test_torch_mpm_kernels, test_torch_mpm_solver, test_torch_package, "
         "test_torch_multibody, test_torch_contact, test_torch_mpc, test_torch_coupled, "
         "test_torch_mppi, test_torch_grid_contact, test_torch_cloth, test_torch_tiles, "
-        "test_torch_tiles_contact, test_torch_systems, test_torch_quadrotor, test_torch_dircol"
+        "test_torch_tiles_contact, test_torch_systems, test_torch_quadrotor, test_torch_dircol, "
+        "test_torch_control, test_torch_acrobot"
     )
     loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
     assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
@@ -375,8 +388,10 @@ def _nlp_entry_points():
     import torch
 
     from drake_tpu_torch.benchmarks import bench_quadrotor_mpc
-    from drake_tpu_torch.examples import pendulum_dircol
-    from drake_tpu_torch.models import pendulum, quadrotor
+    from drake_tpu_torch.examples import (acrobot_lqr_estimator, acrobot_spong,
+                                          acrobot_spong_optimize, acrobot_swingup, cart_pole_lqr,
+                                          pendulum_dircol)
+    from drake_tpu_torch.models import acrobot, cart_pole, pendulum, quadrotor
 
     return {
         "quadrotor.default_params": lambda device: quadrotor.default_params(device=device).mass,
@@ -387,19 +402,45 @@ def _nlp_entry_points():
             device="cpu")[1].bounds(torch.float64, device)[0],
         "bench_quadrotor_mpc.build": lambda device: bench_quadrotor_mpc.build(
             device=device)["us0"],
+        "acrobot.default_params": lambda device: acrobot.default_params(device=device).m1,
+        "acrobot.params_from_numpy": lambda device: acrobot.params_from_numpy(
+            acrobot.params_to_numpy(acrobot.default_params(device="cpu")), device=device).m1,
+        "acrobot.make_system": lambda device: acrobot.make_system(
+            acrobot.default_params(device=device)).default_params.l2,
+        "acrobot.upright_state": lambda device: acrobot.upright_state(device=device),
+        "cart_pole.default_params": lambda device: cart_pole.default_params(device=device).mc,
+        "cart_pole.params_from_numpy": lambda device: cart_pole.params_from_numpy(
+            cart_pole.params_to_numpy(cart_pole.default_params(device="cpu")),
+            device=device).mp,
+        "cart_pole.make_system": lambda device: cart_pole.make_system(
+            cart_pole.default_params(device=device)).default_params.l,
+        "acrobot_swingup.build": lambda device: acrobot_swingup.build(device)[2],
+        # The examples' run() at a depth of one step.
+        "cart_pole_lqr.run": lambda device: cart_pole_lqr.run(device=device, steps=1)["errs"],
+        "acrobot_spong.run": lambda device: acrobot_spong.run(device=device, batch=2,
+                                                              steps=1)["errs"],
+        "acrobot_spong_optimize.run": lambda device: acrobot_spong_optimize.run(
+            device=device, scenarios=2, candidates=2, iters=1, steps=1)["best_gains"],
+        "acrobot_lqr_estimator.run": lambda device: acrobot_lqr_estimator.run(
+            device=device, steps=1)["xs"],
     }
 
 
 NLP_ENTRY_POINTS = ["quadrotor.default_params", "pendulum.default_params",
                     "pendulum_dircol.build_problem", "DircolProblem.bounds",
-                    "bench_quadrotor_mpc.build"]
+                    "bench_quadrotor_mpc.build", "acrobot.default_params",
+                    "acrobot.params_from_numpy", "acrobot.make_system", "acrobot.upright_state",
+                    "cart_pole.default_params", "cart_pole.params_from_numpy",
+                    "cart_pole.make_system", "acrobot_swingup.build", "cart_pole_lqr.run",
+                    "acrobot_spong.run", "acrobot_spong_optimize.run", "acrobot_lqr_estimator.run"]
 
 
 @pytest.mark.parametrize("name", NLP_ENTRY_POINTS)
 def test_nlp_entry_points_default_to_the_card(name):
-    """With no `device` the quadrotor's and the dircol's entry points place
-    their tensors on the current CUDA device, and raise without one; with
-    ``"cpu"`` they stay on the CPU."""
+    """With no `device` the entry points of the quadrotor, the dircol, the
+    acrobot, the cart-pole and their examples place their tensors on the
+    current CUDA device, and raise without one; with ``"cpu"`` they stay on
+    the CPU."""
     import torch
 
     make = _nlp_entry_points()[name]
