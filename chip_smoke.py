@@ -28,7 +28,7 @@ Phases (each prints its lines; any failure exits 1):
    ``mpm_substep_blocked`` (K2 + K1 from block windows + K3) and the
    transfer functions composed by hand, ``particle_to_grid`` ->
    ``update_grid`` -> ``grid_to_particle`` (K2 + the dense K1, the dense
-   grid that grid contact and cloth will use), 200 substeps each, and the
+   grid that grid contact and cloth will use), 100 substeps each, and the
    same three with ``xla_only=True`` (the plain versions) -- on the
    elastic-block scene of benchmarks/bench_mpm_substeps.py at 17,576 and
    132,651 particles; check dropped == 0, finite state, free fall (mean v_z
@@ -143,7 +143,7 @@ TILED_RESORT substeps, and every substep one block sort, K2, K1 from block
 windows and K3 over the live particles):
 
 15. a. ``simulate_tiled`` on phase 3's scenes (17,576 and 132,651
-       particles, 200 substeps) with the kernels and with ``xla_only=True``:
+       particles, 100 substeps) with the kernels and with ``xla_only=True``:
        substeps/s by CUDA events, launches a substep (one K2, one K1 from
        block windows, one K3), and the gates dropped == 0, finite, free
        fall, kernel vs plain and the tiled path vs phase 3's
@@ -223,6 +223,31 @@ none of K1-K3 either:
     d. with ``--profile``, one iLQR iteration, one SQP iteration, the TV-LQR
        solve and one closed-loop step (CUDA graph and eager).
 
+Then the optimization layer (``drake_tpu_torch.solvers``: MathematicalProgram,
+the ADMM QP, the conic ADMM, AL-Newton, the LCP solvers, the block
+Cholesky, branch-and-bound, the Shor relaxation; ``systems.optimization``),
+which reaches none of K1-K3, on the seeded inputs of tests/solver_cases.py:
+
+20. a. card float64 against CPU float64 within 1e-9 of scale, iteration
+       and node counts equal: each back end on its parity tests' inputs,
+       and ``MathematicalProgram.Solve`` on every program of the parity
+       tests (every program type and back end);
+    b. those solves at the entry, float64, each with its seconds,
+       ``info["solver"]`` and the gate of its JAX test or of
+       tutorials/03_optimization.py; ``find_fixed_point`` on the pendulum,
+       the acrobot upright and the quadrotor hover;
+    c. each back end at full width (the QP at 4,096 lanes of n = 120, the
+       LCP at 4,096 of n = 27, the conic SOCP and SDP at 1,024 each,
+       AL-Newton at 1,024, the block Cholesky at 1,024 scenarios of n =
+       384 beside the dense Cholesky), timed by CUDA events after a
+       warm-up, float64 with gates, then float32 without;
+    d. with ``--profile``, one solve of each at its 20c width and the
+       knapsack MIP: ``qp.chunk``, ``qp.polish``, ``conic.iterate``,
+       ``al.inner``, ``al.line_search``, ``lcp.fb``, ``bb.node``.
+
+``python3 chip_smoke.py --opt-only [--profile]`` runs phase 20 alone and
+prints no result line.
+
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
 CUDA device the script exits 1 and prints no result.
@@ -234,12 +259,20 @@ import bisect
 import dataclasses
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import time
 import traceback
+import types
 
-SUBSTEPS = 200
+import numpy as np
+
+# Phases 3 and 15 (the MPM paths): cut from the bench's 200 substeps to keep
+# the whole script within its time limit with phase 20; their gates do not
+# depend on the count (free fall -g t, kernel against plain, launches a
+# substep).
+SUBSTEPS = 100
 WARMUP_SUBSTEPS = 3
 KERNEL_REPS = 20
 PROFILE_SUBSTEPS = 20
@@ -257,7 +290,7 @@ FLUSH_BYTES = 512 * 2**20
 # spin is torch.cuda._sleep, a private function of PyTorch (its own tests use
 # it); should it go, any kernel of a few ms in front of the loop does the same.
 SPIN_CYCLES = 5_000_000
-# Kernel vs plain, max |x| and |v| difference after 200 substeps (float32;
+# Kernel vs plain, max |x| and |v| difference after SUBSTEPS (float32;
 # different summation orders; far below a cell of 1/64).
 MAX_DIFF_PATHS = 1e-4
 # Free fall: mean v_z against -g t (as tests/test_mpm.py).
@@ -380,7 +413,10 @@ TILED_TOP_LAYERS = ("tiles.substep", "coupled.sap_step")
 # held at its corners only, sags under gravity with the falling ball: the
 # ball first leaves its free fall at step 152 in both packages (on the CPU,
 # tests/bagging_reference.py), is caught by step 190 and thrown back up.
-BAGGING_STEPS = 200  # of the demo's 2,200: the fall and the catch
+# Of the demo's 2,200 steps: the fall and the first 8 steps of the catch;
+# cut from 200 (the fall and the whole catch) to keep the script within its
+# time limit with phase 20.
+BAGGING_STEPS = 160
 BAGGING_CONTACT_STEP = 152
 # 14c: 10 steps with the kernels and with xla_only from 14b's state at step
 # 60 (before contact) and at step 160 (in contact).
@@ -411,16 +447,17 @@ BAGGING_PARITY_CPU = {
 BAGGING_PARITY = {case: {name: 100 * value for name, value in values.items()}
                   for case, values in BAGGING_PARITY_CPU.items()}
 BAGGING_PARITY_ITERATIONS = 1
-# Phase 14b and 14d: the ball's height after step 200 against the JAX
-# package's CPU float32 run of the same 200 steps (tests/bagging_reference.py
-# [--penalty], JAX_PLATFORMS=cpu), within a bound fixed before the first run
-# on the card.  There the port's CPU float32 and float64 runs ended 4.39e-5 m
-# apart with the implicit contact (the JAX package's float32 run 7.50e-5 m
-# from the port's, 1.19e-4 m from its float64: each solve stops at its
-# tolerance, and the order of the sums moves where) and 2.85e-7 m apart with
-# the penalty (the JAX package's float32 run equal to the port's): the bounds
-# are 23x and 35x those spreads.
-BAGGING_Z_END = {"implicit": 0.2921878397464752, "penalty": 0.27795833349227905}
+# Phase 14b and 14d: the ball's height after step BAGGING_STEPS against the
+# JAX package's CPU float32 run of the same steps (tests/bagging_reference.py
+# --steps 160 [--penalty], JAX_PLATFORMS=cpu), within bounds fixed before the
+# first run on the card, at step 200: there the port's CPU float32 and
+# float64 runs ended 4.39e-5 m apart with the implicit contact (each solve
+# stops at its tolerance, and the order of the sums moves where) and 2.85e-7
+# m apart with the penalty.  At step 160 they end 3.06e-5 m apart (the JAX
+# package's float32 run 4.8e-7 m from the port's) and 2.45e-7 m apart (the
+# JAX package's float32 run equal to the port's): the bounds are 33x and
+# 41x those spreads.
+BAGGING_Z_END = {"implicit": 0.3069148063659668, "penalty": 0.30403661727905273}
 BAGGING_Z_END_BOUND = {"implicit": 1e-3, "penalty": 1e-5}
 # Phase 14c: kernels against plain versions, max |x| and |v| difference after
 # the 10 steps.  Before contact, 1e-4 as phase 13c.  In contact the solves
@@ -528,6 +565,29 @@ PROFILE_ILQR_ITERS = 4
 PROFILE_LOOP_STEPS = 200
 ILQR_LAYERS = ("ilqr.linearize", "ilqr.riccati", "ilqr.forward")
 TVLQR_LAYERS = ("tvlqr.linearize", "tvlqr.expm", "tvlqr.backward")
+# The optimization layer (phase 20; tests/solver_cases.py's inputs).
+OPT_PARITY = 1e-9  # 20a: card float64 against CPU float64, of the scale
+OPT_QP_LANES = 4096  # config 3's lanes; n = 30 x 4 rotor thrusts
+OPT_LCP_LANES = 4096
+OPT_LCP_N = 27  # the iiwa world's 9 contacts x (normal + 2 friction)
+OPT_CONIC_LANES = 1024
+OPT_AL_LANES = 1024
+OPT_BC_SCENARIOS = 1024
+OPT_BC_BLOCKS = 64  # of 6 x 6: n = 384
+OPT_CHECK_LANES = 64  # 20c: lanes held against the IPM and the CPU run
+OPT_LEMKE_LANES = 16
+# 20c's absolute LCP gates, on spd_lcps(4096, 27, seed=SEED): 20 lanes stall
+# at the smoothing's floor, at residuals between 3e-7 and 3.3e-7, in the JAX
+# package as in the port (tests/test_torch_solvers.py,
+# test_lcp_fb_stalls_where_the_reference_does); every other lane ends below
+# 1e-8.
+OPT_LCP_MIN_BELOW = 4076  # lanes with a residual below 1e-8
+OPT_LCP_MAX_RESIDUAL = 3.3e-7
+# 20c's yardstick for the ADMM QP.  At the IPM's default tol 1e-9 a lane
+# with a weakly active bound (s and z both ~sqrt(mu)) ends up to ~1e-4 off
+# in x on these QPs (7.3e-5 in a run on an H100); at 1e-12 they agree with
+# the ADMM within 1e-8.
+OPT_IPM_TOL = 1e-12
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -1883,7 +1943,7 @@ def bagging_run(torch, mk, gc, mpm_bagging, model, dev, xla_only=False, state=No
     parts, kept = [], {}
     with gc.solve_log() as log:
         at = start
-        for stop in sorted(keep) + [start + steps]:
+        for stop in sorted(set(keep) | {start + steps}):
             parts.append(mpm_bagging.simulate(bag, stop - at, state=state, start=at))
             state, at = parts[-1].state, stop
             kept[stop] = state
@@ -2500,6 +2560,439 @@ def swingup_profile(torch, acrobot_swingup, ilqr, lqr, out, dev, card):
                        f"swing-up closed loop ({mode})", "closed-loop step", card)
 
 
+# ---- phase 20: the optimization layer ---------------------------------------------------
+
+
+def solver_cases():
+    """tests/solver_cases.py, the seeded inputs that the port's CPU parity
+    tests hold against the JAX package (NumPy only)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "solver_cases.py"
+    spec = importlib.util.spec_from_file_location("solver_cases", path)
+    module = sys.modules["solver_cases"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def opt_mods(torch):
+    from drake_tpu_torch.solvers import al_newton, program, semidefinite_relaxation
+
+    return types.SimpleNamespace(program=program, semidefinite_relaxation=semidefinite_relaxation,
+                                 al_newton=al_newton, stack=torch.stack)
+
+
+def backend_values(torch, sc, device):
+    """Phase 20a's back-end quantities on `device` in float64, on the inputs
+    of tests/test_torch_solvers.py: {name: ({field: CPU tensor}, iterations
+    (CPU tensor) or None)}."""
+    from drake_tpu_torch.solvers import al_newton, block_cholesky, conic, lcp, qp
+
+    def on(*arrays):
+        return tuple(None if a is None else torch.tensor(np.asarray(a), dtype=torch.float64,
+                                                         device=device) for a in arrays)
+
+    out = {}
+    admm, _ = sc.admm_qps((3, 4, 5, 6, 7))
+    for name, opts in (("default", {}), ("rho updates", dict(rho=10.0, rho_update_interval=10)),
+                       ("cut", dict(polish=False, max_iters=30, rho_update_interval=8))):
+        s = qp.solve_qp(*on(*admm), options=qp.QpOptions(**opts))
+        out[f"qp {name}"] = ({"x": s.x, "y": s.y}, s.iterations)
+    s = qp.solve_qp(*on(*sc.admm_qps_free()))
+    out["qp m = 0"] = ({"x": s.x}, s.iterations)
+    for name, (P, c, A, b, dims) in {
+            "lp": sc.conic_lp(), "pinned socp": sc.pinned_socps(sc.seeded_targets(5)),
+            "max eigenvalue sdp": sc.max_eig_sdps(sc.seeded_symmetric(4)),
+            "m = 0": sc.conic_qp_free(), "mixed cones": sc.mixed_cones()}.items():
+        s = conic.solve_conic(*on(P, c, A, b), conic.ConeDims(**dims))
+        out[f"conic {name}"] = ({"x": s.x, "s": s.s, "y": s.y}, s.iterations)
+    for name, (f, c, z0, lb, ub) in {
+            "rosenbrock": (sc.rosenbrock_cost, sc.line_constraint, sc.rosenbrock_starts(4), None,
+                           None),
+            "m = 0": (sc.box_quadratic_cost, sc.no_constraint,
+                      np.array([[0.0, 0.0, 0.0], [0.5, -0.5, 0.2]]), -np.ones(3), np.ones(3)),
+            "descent fallback": (sc.double_well_cost, sc.sum_constraint, sc.DOUBLE_WELL_STARTS,
+                                 None, None)}.items():
+        s = al_newton.solve(f, c, *on(z0, lb, ub))
+        out[f"al-newton {name}"] = ({"z": s.z, "lam": s.lam, "cost": s.cost}, s.iterations)
+    z, resid = lcp.solve_lcp_fb(*on(*sc.spd_lcps(6, 7)))
+    out["lcp fb"] = ({"z": z, "residual": resid}, None)
+    cases = {}
+    for name, pattern in sc.COUPLINGS.items():
+        rng = np.random.default_rng(0)
+        cases[name] = (pattern, *sc.random_block_spd(rng, 4, 3, pattern), rng.normal(size=12))
+    cases["chain over 8 scenarios"] = sc.chain_scenarios(8, blocks=5)
+    for name, (pattern, diag, off, rhs) in cases.items():
+        chol = block_cholesky.BlockSparseCholesky(diag.shape[-3], diag.shape[-1], pattern)
+        d, *blocks, r = on(diag, *off.values(), rhs)
+        Ld, Lo = chol.factor(d, dict(zip(off, blocks)))
+        out[f"block cholesky {name}"] = ({"Ld": Ld, "x": chol.solve(Ld, Lo, r)}, None)
+    return {k: ({f: v.detach().double().cpu() for f, v in fields.items()},
+                None if it is None else it.cpu()) for k, (fields, it) in out.items()}
+
+
+def program_values(torch, sc, device):
+    """Phase 20a/b's MathematicalProgram solves on `device`: {name: (result,
+    seconds)}, each program of tests/solver_cases.py solved once."""
+    out = {}
+    for name, (prog, var, options) in sc.programs(opt_mods(torch)).items():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prog.Solve(device=device, options=options)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = (prog, var, res, time.perf_counter() - t0)
+    return out
+
+
+def solve_iterations(info):
+    """The back end's iterations of a MathematicalProgram result, or the
+    MIP's node count."""
+    if "mip_nodes" in info:
+        return ("nodes", info["mip_nodes"])
+    for key in ("qp", "conic", "result"):
+        if key in info:
+            return (key, int(info[key].iterations))
+    return None
+
+
+def opt_parity(torch, sc, dev, card):
+    """Phase 20a: each back end and each MathematicalProgram on the card
+    against the CPU, float64: within OPT_PARITY of the scale, the same
+    iteration counts.  Returns the card's program results for 20b."""
+    cpu = torch.device("cpu")
+    ref, got = backend_values(torch, sc, cpu), backend_values(torch, sc, dev)
+    for name, (fields, it_ref) in ref.items():
+        errs = {f: float((got[name][0][f] - r).abs().max()) / max(1.0, float(r.abs().max()))
+                if r.numel() else 0.0 for f, r in fields.items()}
+        it_got = got[name][1]
+        same_it = it_ref is None or bool(torch.equal(it_ref, it_got))
+        ok = max(errs.values()) <= OPT_PARITY and same_it and all(
+            bool(torch.isfinite(v).all()) for v in got[name][0].values())
+        its = "" if it_ref is None else f"; iterations card {it_got.tolist()} cpu {it_ref.tolist()}"
+        print(f"[opt parity (phase 20a)] {name}: max|f64 card - f64 cpu| / max(1, max|cpu|) "
+              f"{json.dumps({f: float(f'{e:.3e}') for f, e in errs.items()})} (<= {OPT_PARITY:.0e})"
+              f"{its} {'ok' if ok else 'FAIL'}")
+        check(ok, f"opt parity: {name} differs on the card")
+    ref_p, got_p = program_values(torch, sc, cpu), program_values(torch, sc, dev)
+    for name, (prog, _, r, _) in ref_p.items():
+        g = got_p[name][2]
+        err = float(np.abs(g._z - r._z).max()) / max(1.0, float(np.abs(r._z).max()))
+        it = (solve_iterations(g.solver_info), solve_iterations(r.solver_info))
+        ok = (err <= OPT_PARITY and it[0] == it[1] and g.is_success() == r.is_success()
+              and g.solver_info["solver"] == r.solver_info["solver"])
+        print(f"[opt parity (phase 20a)] Solve {name} ({prog.program_type()}, "
+              f"{g.solver_info['solver']}): z off by {err:.3e} of scale (<= {OPT_PARITY:.0e}), "
+              f"{it[0]} on the card, {it[1]} on the cpu, success {g.is_success()} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"opt parity: Solve {name} differs on the card")
+    return got_p
+
+
+def opt_entries(torch, sc, programs, dev, card):
+    """Phase 20b: MathematicalProgram at its entry on the card, float64, one
+    Solve each (20a's card solves), with the gates of the JAX tests and the
+    tutorial; find_fixed_point on three systems."""
+    answer = np.array([2.0, 1.0]) / np.sqrt(5.0)
+    lam_max = float(np.linalg.eigvalsh([[2.0, 1.0], [1.0, 3.0]])[-1])
+
+    def z(name):
+        return programs[name][2]._z
+
+    def cost(name):
+        return programs[name][2].optimal_cost
+
+    gates = {
+        "tutorial_qp": (np.abs(z("tutorial_qp") - 0.5).max(), 1e-6, "v = [0.5, 0.5]"),
+        "tutorial_nlp_sqp": (np.abs(z("tutorial_nlp_sqp") - answer).max(), 1e-4,
+                             "p = target / |target|"),
+        "tutorial_nlp_al_mu1": (np.abs(z("tutorial_nlp_al_mu1") - answer).max(), 1e-4,
+                                "p = target / |target| (AlNewtonOptions(mu0=1.0))"),
+        "lp": (np.abs(z("lp") - 1.0).max(), 1e-5, "x = [1, 1]"),
+        "box_and_two_sided_rows": (np.abs(z("box_and_two_sided_rows") - [1.0, 1.5]).max(), 1e-5,
+                                   "x = [1, 1.5]"),
+        "socp_min_norm": (abs(cost("socp_min_norm") - 1.0 / np.sqrt(2.0)), 1e-4,
+                          "cost 1/sqrt(2)"),
+        "rotated_lorentz_cone": (abs(cost("rotated_lorentz_cone") - 2.0), 1e-4, "cost 2"),
+        "sdp_max_eigenvalue": (abs(cost("sdp_max_eigenvalue") - lam_max), 1e-4, "cost lambda_max"),
+        "sdp_matrix_variable": (abs(cost("sdp_matrix_variable") - 2.0), 1e-3, "cost 2"),
+        "mip_knapsack": (max(np.abs(np.round(z("mip_knapsack")) - [0.0, 1.0, 1.0]).max(),
+                             abs(cost("mip_knapsack") + 6.0)), 1e-4, "b = (0, 1, 1), cost -6"),
+        "mip_quadratic": (max(np.abs(np.round(z("mip_quadratic")) - [0.0, 1.0]).max(),
+                              abs(cost("mip_quadratic") - 0.25)), 1e-4, "b = (0, 1), cost 0.25"),
+        "shor_binary_quadratic": (abs(cost("shor_binary_quadratic") + 2.0), 5e-3, "bound -2"),
+    }
+    for name, (prog, _, res, seconds) in programs.items():
+        gate = gates.get(name)
+        ok = gate is None or (res.is_success() and gate[0] <= gate[1])
+        info = res.solver_info
+        extra = f", {info['mip_nodes']} nodes" if "mip_nodes" in info else ""
+        gated = (f"; |off| {gate[0]:.3e} from {gate[2]} (<= {gate[1]:.0e})" if gate else
+                 "; held to the cpu by 20a")
+        print(f"[opt entries (phase 20b)] {name}: {prog.program_type()} -> {info['solver']}, "
+              f"{solve_iterations(info)}{extra}, success {res.is_success()}, cost "
+              f"{res.optimal_cost!r}, {seconds!r} s{gated} {'ok' if ok else 'FAIL'} [{card}]")
+        check(ok, f"opt entries: {name} failed its gate")
+    al = programs["tutorial_nlp_al"][2]
+    print(f"[opt entries (phase 20b)] tutorial_nlp_al (AlNewtonOptions() defaults) stops on "
+          f"feasibility {np.abs(al._z - answer).max():.3e} from the answer, as both packages do on "
+          f"a CPU (tests/test_torch_program.py)")
+    fixed_points(torch, sc, dev, card)
+
+
+def fixed_points(torch, sc, dev, card):
+    """find_fixed_point on the pendulum of tests/test_debug.py, the port's
+    acrobot about upright and its quadrotor about hover, float64 on the
+    card; the residual below 1e-6 and the rotors at m g / 4."""
+    from drake_tpu_torch.models import acrobot, quadrotor
+    from drake_tpu_torch.systems.base import ContinuousSystem
+    from drake_tpu_torch.systems.optimization import find_fixed_point
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    pend = ContinuousSystem(f=sc.pendulum_f(torch.stack, torch.sin), num_states=2, num_inputs=1)
+    pa, pq = acrobot.default_params(**f64), quadrotor.default_params(**f64)
+    xq = np.zeros(12)
+    xq[3:6] = [0.05, -0.02, 0.3]
+    hover = float(pq.mass * pq.gravity) / 4
+    for name, system, x0, u0, xw in (
+            ("pendulum", pend, *sc.PENDULUM_GUESS, 1e-4),
+            ("acrobot upright", acrobot.make_system(pa), np.array([np.pi - 0.1, 0.05, 0.1, 0.0]),
+             np.array([0.3]), 1e-3),
+            ("quadrotor hover", quadrotor.make_system(pq), xq,
+             np.full(4, hover) + [0.2, -0.1, 0.0, 0.1], 1e-3)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs, us, ok = find_fixed_point(system, x0, u0, x_cost_weight=xw, device=dev)
+        seconds = time.perf_counter() - t0
+        x_t, u_t = torch.tensor(xs, **f64), torch.atleast_1d(torch.tensor(us, **f64))
+        resid = float(system.f(system.default_params, x_t, u_t, 0.0).abs().max())
+        rotors = float(np.abs(us - hover).max()) if name == "quadrotor hover" else 0.0
+        good = ok and resid < 1e-6 and rotors < 1e-6
+        print(f"[opt entries (phase 20b)] find_fixed_point {name}: success {ok}, |f(x*, u*)| "
+              f"{resid:.3e} (< 1e-6), x* {np.round(xs, 6).tolist()}, u* {np.round(us, 9).tolist()}"
+              + (f" (m g / 4 = {hover!r}: off by {rotors:.3e}, < 1e-6)" if rotors or
+                 name == "quadrotor hover" else "")
+              + f", {seconds!r} s {'ok' if good else 'FAIL'} [{card}]")
+        check(good, f"find_fixed_point {name} failed")
+
+
+def mpc_qps(torch, lanes, dtype, device, seed=SEED, horizon=30, rotors=4, eq_rows=60, box=1.5):
+    """20c's QPs, made on the card from a seeded generator: n = horizon x
+    rotors (the quadrotor MPC's decision size), A = [G; I] with `eq_rows`
+    equality rows and n box rows as tests/test_solvers.py lays them out,
+    P = L L' / n + I (L / sqrt(n) keeps P's spectrum in [1, ~5]).  Returns
+    the ADMM form (P, q, A, l, u) and the IPM form (P, q, G, b, lb, ub)."""
+    n = horizon * rotors
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, dtype=torch.float64, device=device, generator=gen)
+
+    L = randn(lanes, n, n) / math.sqrt(n)
+    P = L @ L.mT + torch.eye(n, dtype=torch.float64, device=device)
+    q = randn(lanes, n)
+    G = randn(lanes, eq_rows, n) / math.sqrt(n)
+    b = 0.1 * randn(lanes, eq_rows)
+    lb = torch.full((lanes, n), -box, dtype=torch.float64, device=device)
+    eye = torch.eye(n, dtype=torch.float64, device=device).expand(lanes, n, n)
+    admm = (P, q, torch.cat([G, eye], dim=1), torch.cat([b, lb], dim=1), torch.cat([b, -lb], dim=1))
+    return (tuple(a.to(dtype) for a in admm),
+            tuple(a.to(dtype) for a in (P, q, G, b, lb, -lb)))
+
+
+def timed_call(torch, fn, warm_up=True):
+    """(result, device ms by CUDA events, host s, peak bytes above what was
+    held) of fn(), after one warm-up call unless `warm_up` is False."""
+    if warm_up:
+        fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), time.perf_counter() - t0, (
+        torch.cuda.max_memory_allocated() - base)
+
+
+def opt_batched(torch, sc, dev, card):
+    """Phase 20c: each back end at full width, float64 with its gates after a
+    warm-up call, then float32 reported without a gate or a warm-up (the
+    float64 calls have loaded the code; the float32 conic ADMM runs its 4,000
+    iterations).  Returns the inputs of 20d."""
+    from drake_tpu_torch.solvers import al_newton, block_cholesky, conic, ipm, lcp, qp
+
+    out = {}
+
+    def report(name, lanes, dtype, ms, host, peak, extra, ok=True):
+        call = "after a warm-up call" if dtype == torch.float64 else "the first float32 call"
+        print(f"[opt batched (phase 20c)] {name} {lanes} lanes {str(dtype)[6:]}: "
+              f"{ms!r} ms by CUDA events, {call} ({host!r} s host), {lanes / (ms / 1e3)!r} "
+              f"solves/s, peak "
+              f"{peak} B above the inputs; {extra} {'ok' if ok else 'FAIL'} [{card}]")
+        check(ok, f"opt batched: {name} {str(dtype)[6:]} failed its gate")
+
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        # The ADMM QP over config 3's 4,096 lanes, n = 120.
+        admm, ipm_form = mpc_qps(torch, OPT_QP_LANES, dtype, dev)
+        sol, ms, host, peak = timed_call(torch, lambda: qp.solve_qp(*admm), f64)
+        finite = bool(torch.isfinite(sol.x).all())
+        extra = (f"n = {admm[1].shape[-1]}, m = {admm[3].shape[-1]}; finite {finite}, converged "
+                 f"{int(sol.converged.sum())}/{OPT_QP_LANES}, iterations max "
+                 f"{int(sol.iterations.max())}")
+        ok = True
+        if f64:
+            k = OPT_CHECK_LANES
+            ref = ipm.solve_qp_ipm(*(a[:k] for a in ipm_form),
+                                   ipm.IpmOptions(tol=OPT_IPM_TOL, max_iters=60))
+            err = float((sol.x[:k] - ref.w).abs().max())
+            extra += (f"; the first {k} lanes' x against the port's IPM at tol {OPT_IPM_TOL:.0e}: "
+                      f"{err:.3e} (<= 1e-5)")
+            ok = finite and err <= 1e-5 and bool(ref.converged.all())
+            out["qp"] = admm
+        report("qp.solve_qp", OPT_QP_LANES, dtype, ms, host, peak, extra, ok)
+        del admm, ipm_form, sol
+
+        # The FB LCP over 4,096 lanes of the iiwa world's 9 contacts x 3.
+        M, q = (torch.tensor(a, dtype=dtype, device=dev)
+                for a in sc.spd_lcps(OPT_LCP_LANES, OPT_LCP_N, seed=SEED))
+        (z, resid), ms, host, peak = timed_call(torch, lambda: lcp.solve_lcp_fb(M, q), f64)
+        worst, below = float(resid.max()), int((resid < 1e-8).sum())
+        extra = (f"n = {OPT_LCP_N}; max residual {worst:.3e}, below 1e-8 in "
+                 f"{below}/{OPT_LCP_LANES} lanes")
+        ok = True
+        if f64:
+            # Lanes with a degenerate pair (z and w both ~0) stall at the
+            # smoothing's floor (sqrt(1e-12)) above 1e-8, in the JAX package
+            # as in the port: the gates are the reference's own readings on
+            # these inputs (OPT_LCP_*), and each lane's residual is held to
+            # the port's CPU run.
+            _, resid_cpu = lcp.solve_lcp_fb(M.cpu(), q.cpu())
+            err_cpu = float((resid.cpu() - resid_cpu).abs().max())
+            k = OPT_LEMKE_LANES
+            Mh, qh, zh = M[:k].cpu().numpy(), q[:k].cpu().numpy(), z[:k].cpu().numpy()
+            err = max(float(np.abs(zh[i] - lcp.lemke(Mh[i], qh[i]).z).max()) for i in range(k))
+            extra += (f" (>= {OPT_LCP_MIN_BELOW}; max <= {OPT_LCP_MAX_RESIDUAL:.1e}); every "
+                      f"lane's residual against the CPU run: {err_cpu:.3e} (<= {OPT_PARITY:.0e}); "
+                      f"the first {k} lanes against lemke: {err:.3e} (<= 1e-6)")
+            ok = (bool(torch.isfinite(z).all()) and below >= OPT_LCP_MIN_BELOW
+                  and worst <= OPT_LCP_MAX_RESIDUAL and err_cpu <= OPT_PARITY and err <= 1e-6)
+            out["lcp"] = (M, q)
+        report("lcp.solve_lcp_fb", OPT_LCP_LANES, dtype, ms, host, peak, extra, ok)
+
+        # The conic ADMM: the pinned SOCP and the max-eigenvalue SDP.
+        targets = sc.seeded_targets(OPT_CONIC_LANES)
+        mats = sc.seeded_symmetric(OPT_CONIC_LANES)
+        for name, (P, c, A, b, dims), want in (
+                ("pinned socp", sc.pinned_socps(targets), np.linalg.norm(targets, axis=1)),
+                ("max eigenvalue sdp", sc.max_eig_sdps(mats), np.linalg.eigvalsh(mats)[:, -1])):
+            c, A, b = (torch.tensor(np.asarray(a), dtype=dtype, device=dev) for a in (c, A, b))
+            cone = conic.ConeDims(**dims)
+            sol, ms, host, peak = timed_call(torch, lambda: conic.solve_conic(None, c, A, b, cone),
+                                              f64)
+            err = float(np.abs(sol.x[:, 0].double().cpu().numpy() - want).max())
+            extra = (f"{name}: converged {int(sol.converged.sum())}/{OPT_CONIC_LANES}, iterations "
+                     f"max {int(sol.iterations.max())}; t* off by {err:.3e}"
+                     + (" (<= 1e-4)" if f64 else ""))
+            report("conic.solve_conic", OPT_CONIC_LANES, dtype, ms, host, peak, extra,
+                   err <= 1e-4 if f64 else True)
+            if f64 and name == "pinned socp":
+                out["conic"] = (c, A, b, cone)
+
+        # AL-Newton: the equality-constrained Rosenbrock from seeded starts.
+        z0 = sc.rosenbrock_starts(OPT_AL_LANES)
+        z0_t = torch.tensor(z0, dtype=dtype, device=dev)
+        sol, ms, host, peak = timed_call(torch, lambda: al_newton.solve(
+            sc.rosenbrock_cost, sc.line_constraint, z0_t), f64)
+        succ = sol.success
+        line = (sol.z.sum(-1) - 1.0).abs()
+        extra = (f"success {int(succ.sum())}/{OPT_AL_LANES}, outer iterations max "
+                 f"{int(sol.iterations.max())}; max |x + y - 1| over the successful lanes "
+                 f"{float(line[succ].max()) if bool(succ.any()) else float('nan'):.3e}")
+        ok = True
+        if f64:
+            k = OPT_CHECK_LANES
+            ref = al_newton.solve(sc.rosenbrock_cost, sc.line_constraint,
+                                  torch.tensor(z0[:k], dtype=dtype))
+            err = float((sol.z[:k].cpu() - ref.z).abs().max()) / max(1.0, float(ref.z.abs().max()))
+            same = bool(torch.equal(sol.success[:k].cpu(), ref.success))
+            extra += (f" (<= 1e-6); the first {k} lanes against the port's CPU run: z off by "
+                      f"{err:.3e} of scale (<= 1e-8), success flags equal {same}")
+            ok = err <= 1e-8 and same and bool(succ.any()) and float(line[succ].max()) <= 1e-6
+            out["al"] = z0_t
+        report("al_newton.solve", OPT_AL_LANES, dtype, ms, host, peak, extra, ok)
+
+        # The block Cholesky: a chain of 64 blocks of 6 x 6 over 1,024 scenarios.
+        couplings, diag, off, rhs = sc.chain_scenarios(OPT_BC_SCENARIOS, OPT_BC_BLOCKS)
+        chol = block_cholesky.BlockSparseCholesky(OPT_BC_BLOCKS, 6, couplings)
+        d, *blocks, r = (torch.tensor(a, dtype=dtype, device=dev)
+                         for a in (diag, *off.values(), rhs))
+        off_t = dict(zip(off, blocks))
+
+        def sparse():
+            return chol.solve(*chol.factor(d, off_t), r)
+
+        x, ms, host, peak = timed_call(torch, sparse, f64)
+        H = chol.to_dense(d, off_t)
+        x_dense, ms_dense, host_dense, peak_dense = timed_call(
+            torch, lambda: torch.cholesky_solve(r[..., None], torch.linalg.cholesky(H))[..., 0], f64)
+        err = float((x - x_dense).abs().max()) / max(1.0, float(x_dense.abs().max()))
+        extra = (f"n = {OPT_BC_BLOCKS * 6}, factor and solve; the dense torch.linalg.cholesky "
+                 f"solve of to_dense: {ms_dense!r} ms ({host_dense!r} s host, peak {peak_dense} B); "
+                 f"x off the dense by {err:.3e} of scale" + (" (<= 1e-10)" if f64 else ""))
+        report("BlockSparseCholesky", OPT_BC_SCENARIOS, dtype, ms, host, peak, extra,
+               err <= 1e-10 if f64 else True)
+        if f64:
+            out["block cholesky"] = sparse
+        del H, x_dense
+        torch.cuda.empty_cache()
+    return out
+
+
+def opt_profile(torch, sc, inputs, programs, dev, card):
+    """Phase 20d: torch.profiler over one solve of each back end at its 20c
+    width (float64), and over the knapsack MIP's branch-and-bound."""
+    from drake_tpu_torch.solvers import al_newton, conic, lcp, qp
+
+    runs = (
+        ("qp.solve_qp 4096 lanes", lambda: qp.solve_qp(*inputs["qp"]), ("qp.chunk", "qp.polish")),
+        ("conic.solve_conic pinned socp 1024 lanes",
+         lambda: conic.solve_conic(None, *inputs["conic"]), ("conic.iterate",)),
+        ("al_newton.solve 1024 lanes", lambda: al_newton.solve(
+            sc.rosenbrock_cost, sc.line_constraint, inputs["al"]), ("al.inner", "al.line_search")),
+        ("lcp.solve_lcp_fb 4096 lanes", lambda: lcp.solve_lcp_fb(*inputs["lcp"]), ("lcp.fb",)),
+        ("MIP knapsack", lambda: programs["mip_knapsack"][0].Solve(device=dev), ("bb.node",)),
+    )
+    for tag, run, layers in runs:
+        profile_layers(torch, run, 1, layers, layers, tag, "solve", card)
+
+
+def opt_phase(torch, mk, dev, card, profile):
+    """Phase 20, 20a-20c (and 20d with `profile`); returns the kernels'
+    launches in it (none: no kernel lies on this path)."""
+    sc = solver_cases()
+    mk.reset_launch_counts()
+    t = [time.perf_counter()]
+    programs = opt_parity(torch, sc, dev, card)
+    t.append(time.perf_counter())
+    opt_entries(torch, sc, programs, dev, card)
+    t.append(time.perf_counter())
+    inputs = opt_batched(torch, sc, dev, card)
+    t.append(time.perf_counter())
+    launches = dict(mk.LAUNCHES)
+    if profile:
+        opt_profile(torch, sc, inputs, programs, dev, card)
+        t.append(time.perf_counter())
+    print("[opt (phase 20)] seconds of host wall of 20a-20c" + (", 20d" if profile else "")
+          + ": " + json.dumps([round(b - a, 1) for a, b in zip(t, t[1:])]))
+    return launches
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -2532,6 +3025,9 @@ def main(argv) -> int:
     print(card)  # the card's name and power limit, as nvidia-smi prints them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
+    if "--opt-only" in argv:  # phase 20 alone, with no result line
+        opt_phase(torch, mk, dev, card, "--profile" in argv)
+        return 0
 
     phase_start["1"] = time.perf_counter()
     # ---- 1. build ----------------------------------------------------------
@@ -2799,6 +3295,12 @@ def main(argv) -> int:
     if "--profile" in argv:
         swingup_profile(torch, acrobot_swingup, ilqr, lqr, swingup, dev, card)
     del swingup
+    torch.cuda.empty_cache()
+
+    phase_start["20"] = time.perf_counter()
+    # ---- 20. the optimization layer: MathematicalProgram and its back ends --
+    by_path["optimization layer (phase 20)"] = opt_phase(torch, mk, dev, card,
+                                                          "--profile" in argv)
 
     ends = list(phase_start.values())[1:] + [time.perf_counter()]
     print("[phases] seconds of host wall: " + json.dumps(

@@ -10,6 +10,7 @@ from __future__ import annotations
 import subprocess
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -26,6 +27,27 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
             'default; pass device="cpu" to run on the CPU'
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def tensors_on(arrays, device=None):
+    """`arrays` (tensors, array-likes or None) as tensors on one device and
+    of one floating dtype, for a solver's entry point.
+
+    The device is `device` where given, else that of the first tensor among
+    `arrays`, else ``resolve_device(None)``: arrays from the host go to the
+    card unless the caller asks for the CPU.  The dtype is that of the first
+    tensor, else float64 (the reference's numpy inputs under x64).  None
+    entries stay None."""
+    first = next((a for a in arrays if isinstance(a, torch.Tensor)), None)
+    if device is not None or first is None:
+        device = resolve_device(device)
+    else:
+        device = first.device
+    dtype = first.dtype if first is not None else torch.float64
+    return tuple(None if a is None
+                 else a.to(dtype=dtype, device=device) if isinstance(a, torch.Tensor)
+                 else torch.as_tensor(np.array(a), dtype=dtype, device=device)
+                 for a in arrays)
 
 
 _CONSTANTS: dict = {}

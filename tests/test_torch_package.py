@@ -113,6 +113,15 @@ PORT_MODULES = (
     "drake_tpu_torch.examples.acrobot_spong",
     "drake_tpu_torch.examples.acrobot_spong_optimize",
     "drake_tpu_torch.examples.acrobot_lqr_estimator",
+    "drake_tpu_torch.solvers.al_newton",
+    "drake_tpu_torch.solvers.qp",
+    "drake_tpu_torch.solvers.conic",
+    "drake_tpu_torch.solvers.lcp",
+    "drake_tpu_torch.solvers.block_cholesky",
+    "drake_tpu_torch.solvers.program",
+    "drake_tpu_torch.solvers.branch_and_bound",
+    "drake_tpu_torch.solvers.semidefinite_relaxation",
+    "drake_tpu_torch.systems.optimization",
 )
 
 
@@ -144,7 +153,7 @@ def test_collecting_port_tests_loads_no_torch():
         "test_torch_multibody, test_torch_contact, test_torch_mpc, test_torch_coupled, "
         "test_torch_mppi, test_torch_grid_contact, test_torch_cloth, test_torch_tiles, "
         "test_torch_tiles_contact, test_torch_systems, test_torch_quadrotor, test_torch_dircol, "
-        "test_torch_control, test_torch_acrobot"
+        "test_torch_control, test_torch_acrobot, test_torch_solvers, test_torch_program"
     )
     loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
     assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
@@ -447,6 +456,76 @@ def test_nlp_entry_points_default_to_the_card(name):
     assert make("cpu").device == torch.device("cpu")
     if torch.cuda.is_available():
         assert make(None).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(None)
+
+
+def _solver_entry_points():
+    """name -> callable(device) returning a tensor or an array, for the
+    optimization layer's entry points, on the inputs of
+    tests/solver_cases.py (host arrays: the device comes from `device`)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import solver_cases as sc
+
+    from drake_tpu_torch.solvers import al_newton, block_cholesky, conic, lcp, program, qp
+    from drake_tpu_torch.systems import optimization
+    from drake_tpu_torch.systems.base import ContinuousSystem
+
+    def program_solve(device):
+        prog = program.MathematicalProgram()
+        x = prog.NewContinuousVariables(2)
+        prog.AddQuadraticErrorCost(np.eye(2), [1.0, -2.0], x)
+        return prog.Solve(device=device).solver_info["qp"].w
+
+    def fixed_point(device):
+        import torch
+
+        f = sc.pendulum_f(torch.stack, torch.sin)
+        system = ContinuousSystem(f=f, num_states=2, num_inputs=1)
+        return optimization.find_fixed_point(system, *sc.PENDULUM_GUESS, device=device)[0]
+
+    def block_factor(device):
+        chol = block_cholesky.BlockSparseCholesky(2, 2, [(1, 0)])
+        return chol.factor(4 * np.eye(2)[None].repeat(2, 0), {(1, 0): np.eye(2)},
+                           device=device)[0]
+
+    (P, q, A, l, u), _ = sc.admm_qps()
+    cP, cc, cA, cb, dims = sc.pinned_socps(sc.seeded_targets(2))
+    return {
+        "qp.solve_qp": lambda device: qp.solve_qp(P, q, A, l, u, device=device).x,
+        "conic.solve_conic": lambda device: conic.solve_conic(
+            cP, cc, cA, cb, conic.ConeDims(**dims), device=device).x,
+        "al_newton.solve": lambda device: al_newton.solve(
+            sc.rosenbrock_cost, sc.line_constraint, sc.rosenbrock_starts(2), device=device).z,
+        "lcp.solve_lcp_fb": lambda device: lcp.solve_lcp_fb(*sc.spd_lcps(2, 3),
+                                                            device=device)[0],
+        "BlockSparseCholesky.factor": block_factor,
+        "MathematicalProgram.Solve": program_solve,
+        "find_fixed_point": fixed_point,
+    }
+
+
+SOLVER_ENTRY_POINTS = ["qp.solve_qp", "conic.solve_conic", "al_newton.solve",
+                       "lcp.solve_lcp_fb", "BlockSparseCholesky.factor",
+                       "MathematicalProgram.Solve", "find_fixed_point"]
+
+
+@pytest.mark.parametrize("name", SOLVER_ENTRY_POINTS)
+def test_solver_entry_points_default_to_the_card(name):
+    """The back ends put arrays from the host on the current CUDA device
+    unless asked for the CPU, and MathematicalProgram.Solve and
+    find_fixed_point solve there; without a card they raise."""
+    import torch
+
+    make = _solver_entry_points()[name]
+    got = make("cpu")
+    assert isinstance(got, np.ndarray) or got.device == torch.device("cpu")
+    if torch.cuda.is_available():
+        got = make(None)
+        assert isinstance(got, np.ndarray) or got.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(None)
