@@ -6,7 +6,9 @@ BASELINE config 5), that world with the dense implicit grid contact, the
 codimensional cloth's bagging demo, the tile pipeline, the world with
 the implicit grid contact on the tile pipeline (the default of "implicit"),
 the quadrotor obstacle MPC (config 3), the pendulum dircol (config 1) and
-the acrobot swing-up with TV-LQR (config 2) with the LQR family's examples.
+the acrobot swing-up with TV-LQR (config 2) with the LQR family's examples,
+the optimization layer, and continuous-time and hybrid simulation with the
+bouncing-ball, rimless-wheel and compass-gait demos.
 Run from the root of a checkout, on a machine with one
 NVIDIA GPU:
 
@@ -28,7 +30,7 @@ Phases (each prints its lines; any failure exits 1):
    ``mpm_substep_blocked`` (K2 + K1 from block windows + K3) and the
    transfer functions composed by hand, ``particle_to_grid`` ->
    ``update_grid`` -> ``grid_to_particle`` (K2 + the dense K1, the dense
-   grid that grid contact and cloth will use), 100 substeps each, and the
+   grid that grid contact and cloth will use), 50 substeps each, and the
    same three with ``xla_only=True`` (the plain versions) -- on the
    elastic-block scene of benchmarks/bench_mpm_substeps.py at 17,576 and
    132,651 particles; check dropped == 0, finite state, free fall (mean v_z
@@ -105,7 +107,9 @@ same world, with the JAX bench's --implicit solve parameters:
        (more than one Newton iteration in some substep), every solve below
        the cap at its tolerance;
     c. the K = 64 rollout with ``xla_only=True`` against the kernels, within
-       1e-4; K1 from block windows with the mass against its plain version
+       IMPLICIT_MAX_DIFF; both rollouts run once more, each bit for bit its first run,
+       and the Newton's fixed-order scatter timed beside ``index_add_``;
+       K1 from block windows with the mass against its plain version
        and timed beside the velocity-only launch; with ``--profile``, the
        device share and host ms of ``grid_contact.newton`` and
        ``grid_contact.line_search`` per coupled substep.
@@ -143,7 +147,7 @@ TILED_RESORT substeps, and every substep one block sort, K2, K1 from block
 windows and K3 over the live particles):
 
 15. a. ``simulate_tiled`` on phase 3's scenes (17,576 and 132,651
-       particles, 100 substeps) with the kernels and with ``xla_only=True``:
+       particles, 50 substeps) with the kernels and with ``xla_only=True``:
        substeps/s by CUDA events, launches a substep (one K2, one K1 from
        block windows, one K3), and the gates dropped == 0, finite, free
        fall, kernel vs plain and the tiled path vs phase 3's
@@ -245,8 +249,36 @@ which reaches none of K1-K3, on the seeded inputs of tests/solver_cases.py:
        knapsack MIP: ``qp.chunk``, ``qp.polish``, ``conic.iterate``,
        ``al.inner``, ``al.line_search``, ``lcp.fb``, ``bb.node``.
 
-``python3 chip_smoke.py --opt-only [--profile]`` runs phase 20 alone and
-prints no result line.
+Then continuous-time and hybrid simulation (``systems/simulator.py``'s
+``simulate_adaptive``, ``simulate_hybrid`` and ``dense_output``,
+``math/trajectories.py``, ``systems/primitives.py``, ``diagram.py``,
+``comms.py``, ``control/controllers.py``, ``multibody/plant.py``, the
+continuous contact plant, TAMSI and PGS), which reaches none of K1-K3:
+
+21. a. the port in float32 on the card against float64 on the CPU on small
+       seeded inputs of each module, within SYS_PARITY, the counts (steps,
+       rejects, events, Newton iterations) equal or within
+       SYS_PARITY_COUNTS;
+    b. the bouncing ball (15,000 rk4 steps and the dense output at 6,001
+       times), the rimless wheel (20 s) and the compass gait (12 s), float32
+       on the card at the reference's size and depth, each with its own
+       checks and held to the JAX package's float32 readings
+       (SYSTEMS_JAX_F32), with its seconds;
+    c. over lanes in one call, lanes/s and peak memory: the wheel's
+       ``simulate_hybrid`` over 1,024 pushes (each of LANE_CHECKS_SYS lanes
+       against its one-lane run), ``simulate_adaptive`` over 1,024
+       oscillators (float32 against float64), and SAP, TAMSI and PGS (both
+       sweeps) over 1,024 lanes of the bench world (64 held to the CPU's
+       float64 solves), with TAMSI and PGS against SAP at physics level on
+       1,024 slides of test_contact.py's sphere;
+    d. a publishing rollout and a closed loop with comms through the port's
+       copy of pubsub on the card: the messages equal the CPU run's;
+    with ``--profile``, the ranges ``hybrid.macro``, ``hybrid.isolate``,
+    ``adaptive.step``, ``tamsi.newton`` and ``pgs.sweep``.
+
+``python3 chip_smoke.py --opt-only [--profile]`` runs phase 20 alone, and
+``--systems-only [--profile]`` phase 21 alone; neither prints a result
+line.
 
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -268,11 +300,11 @@ import types
 
 import numpy as np
 
-# Phases 3 and 15 (the MPM paths): cut from the bench's 200 substeps to keep
-# the whole script within its time limit with phase 20; their gates do not
-# depend on the count (free fall -g t, kernel against plain, launches a
-# substep).
-SUBSTEPS = 100
+# Phases 3 and 15 (the MPM paths): cut from the bench's 200 substeps to 100
+# to keep the whole script within its time limit with phase 20, and to 50
+# with phase 21; their gates do not depend on the count (free fall -g t,
+# kernel against plain, launches a substep).
+SUBSTEPS = 50
 WARMUP_SUBSTEPS = 3
 KERNEL_REPS = 20
 PROFILE_SUBSTEPS = 20
@@ -393,11 +425,20 @@ IMPLICIT_PARITY_CPU = {
 }
 IMPLICIT_PARITY = {name: 100 * value for name, value in IMPLICIT_PARITY_CPU.items()}
 IMPLICIT_PARITY_ITERATIONS = 1
-# Phase 13c: kernels against plain versions after the 64-lane rollout, as
-# phase 11.  The blocked P2G's plain version against the scatter, both
-# float32 on a CPU over 8 of these lanes, differed by 1.8e-7 (x) and 2.5e-6
-# (v).
-IMPLICIT_MAX_DIFF_PATHS = 1e-4
+# Phase 13c: kernels against plain versions after the 64-lane rollout, max
+# |difference| in the particles' x, the paddle's position q, the particles'
+# v and the paddle's velocity.  x and q: 1e-4, as phase 11 (the blocked
+# P2G's plain version against the scatter, both float32 on a CPU over 8 of
+# these lanes, differed by 1.8e-7 in x).  The velocities: the dense world's
+# float32 floor, its float32 rollout against its float64 one on a CPU
+# (``python tests/tiled_world_spread.py --dense``: 4.935e-5 in x, 2.654e-5
+# in q, 9.143e-4 in v, 4.278e-4 in the paddle's velocity), rounded up, as
+# 16d's.  With the scatters in a fixed order both paths are the same in
+# every run, and a lane's solve capped at 20 iterations keeps the two
+# paths' rounding apart: 2.464e-4 in v and 1.647e-4 in the paddle's state
+# on an NVIDIA H100 80GB HBM3 at 700.00 W, over the 1e-4 of the earlier
+# single bound.
+IMPLICIT_MAX_DIFF = {"x": 1e-4, "q": 1e-4, "v": 1e-3, "paddle v": 5e-4}
 IMPLICIT_LAYERS = ("grid_contact.substep", "grid_contact.newton", "grid_contact.line_search",
                    "coupled.sap_step")
 IMPLICIT_TOP_LAYERS = ("grid_contact.substep", "coupled.sap_step")
@@ -588,6 +629,120 @@ OPT_LCP_MAX_RESIDUAL = 3.3e-7
 # in x on these QPs (7.3e-5 in a run on an H100); at 1e-12 they agree with
 # the ADMM within 1e-8.
 OPT_IPM_TOL = 1e-12
+# 20c's float32 conic ADMM, reported without a gate: cut from its default
+# 4,000 iterations (which it ran to, 4.6 and 5.4 s on an H100) to keep the
+# whole script within its time limit with phase 21.
+OPT_F32_CONIC_ITERS = 1000
+
+# Continuous-time and hybrid simulation (phase 21; drake_tpu_torch's
+# systems/simulator.py, math/trajectories.py, primitives, diagram,
+# controllers, multibody/plant, contact/plant, tamsi, pgs, comms and the
+# examples bouncing_ball, rimless_wheel and compass_gait).  It reaches none
+# of K1-K3.  21a bounds: 100x the same comparison between float32 and
+# float64 on a CPU (``systems_parity_values`` on the CPU in both types),
+# which gave SYS_PARITY_CPU, as a share of the float64 answer's largest
+# magnitude.  The SAP and TAMSI solves there stop at 1e-3, a tolerance
+# float32 reaches (at 1e-6 and 1e-8 its solves run to their caps).
+SYS_PARITY_CPU = {
+    "traj zoh value": 2.36e-08, "traj zoh derivative": 0.0, "traj foh value": 1.68e-07,
+    "traj foh derivative": 1.13e-07, "traj hermite value": 2.23e-07,
+    "traj hermite derivative": 9.59e-07, "traj spline value": 2.49e-07,
+    "traj spline derivative": 2.41e-07, "traj bspline": 1.53e-07, "traj bezier": 1.55e-07,
+    "traj pose": 1.86e-07, "adaptive x": 7.01e-07, "adaptive final time": 2.78e-08,
+    "hybrid xs": 2.40e-06, "dense output": 4.00e-07, "linear system": 8.44e-08,
+    "mlp": 1.25e-07, "discrete derivative": 4.31e-08, "first order hold": 1.68e-07,
+    "diagram cascade": 1.09e-06, "diagram feedback": 3.28e-07, "pid closed loop": 2.18e-07,
+    "inverse dynamics control": 8.96e-08, "joint stiffness control": 3.04e-08,
+    "multibody plant": 1.68e-07, "continuous contact": 7.88e-07, "step with forces": 5.64e-07,
+    "tamsi": 3.19e-06, "pgs gs": 5.32e-07, "pgs jacobi": 5.82e-07,
+}
+# A quantity the CPU's float32 gives exactly (the hold's derivative) is held
+# at float32's epsilon, 1.2e-7.
+SYS_PARITY = {name: max(100 * value, 1.2e-7) for name, value in SYS_PARITY_CPU.items()}
+# Counts: equal, but the adaptive integrator's, where a float32 step's error
+# ratio lies within rounding of 1 and is accepted in one type and rejected
+# in the other (one lane of 8 on the CPU: 21 steps and 1 reject in float32,
+# 20 and 0 in float64).
+SYS_PARITY_COUNTS = {"adaptive steps": 1, "adaptive rejects": 1}
+# 21b: the JAX package's float32 readings on the CPU
+# (``JAX_PLATFORMS=cpu python tests/systems_reference.py``).
+SYSTEMS_JAX_F32 = {
+    "ball": {"apexes": [[0.40149998664855957, 0.15588220953941345],
+                        [0.6599999666213989, 0.10357201099395752],
+                        [0.8527499437332153, 0.08211714029312134],
+                        [1.0067499876022339, 0.0712779238820076]],
+             "n_apexes": 6, "ratio": 0.5059585668545757, "t_flight": 0.25849997997283936},
+    "wheel": {"strikes": 19, "w_meas": 1.0950673818588257},
+    "wheel_lanes": {"seconds": 3.0, "strikes_sum": 2660, "strikes_min": 0, "strikes_max": 4,
+                    # each lane's strikes, one digit a lane in lane order
+                    "strikes": (
+                        "320034333430303233230233334433332332334333333323033230323320320323243034"
+                        "343334433333333413440344243332342334033030334030334322322233332333433332"
+                        "340333030323423033343223333432333443322332343323304303433232334033230303"
+                        "334342003332333333032334243333340333433330333332333130332334334433433323"
+                        "303033331433330333334323333232233330332333423023332303333023344233223332"
+                        "333200324033233303330242333333333432303324003423234343433333323233331333"
+                        "333332233243333322333333432330233321332032033322333333333332333334330342"
+                        "032434333324333223203333334332223323333332233333223232333322103230332322"
+                        "433333033332034333333332033333130233133332233323323343240223332312333332"
+                        "333332330023403323322343400032333233203333223332334330333242333333434431"
+                        "232323323333334343232332043132233323333332442304322333323012304223433243"
+                        "033323343323303333234033333333233222433320230323332303433303333032322332"
+                        "333333332033333333333333333032332333434333323243423333303033023333233330"
+                        "223333003333303133333043333313233432333334334330232033333033032303333322"
+                        "0200320420433303")},
+    "compass": {"strikes": 17, "post_last": [-0.2706921100616455, 0.27141663432121277,
+                                             1.0909202098846436, 0.37053006887435913],
+                "d_last": 0.0064291199669241905},
+}
+STEPS_BALL = 15000
+# 21b's bounds against the JAX run.  The float32 bisection's dt / 2^24 lies
+# below t's ulp late in a 20 s run in both packages, so event times differ in
+# their last bits: the strikes within 1, the apex ratio and apex-to-apex
+# time within 1e-3 (the dense grid's step is 2.5e-4 s), the wheel's
+# limit-cycle speed within 1e-3 rad/s.  The gait's last post-impact state
+# within 10x its float32 floor: the port's float32 on the CPU ends 2.19e-4
+# from its float64 there, the JAX package's float32 1.26e-5 (the card read
+# 1.606e-4 from the JAX package's float32).
+DEMO_BOUNDS = {"ball ratio": 1e-3, "ball t_flight": 1e-3, "strikes": 1, "wheel speed": 1e-3,
+               "gait state": 2.2e-3}
+# The graph-replayed loops bit for bit their eager loops: the ball's simulate
+# over GRAPH_BALL_STEPS steps through a contact (it touches at step 20 and
+# leaves at about step 90; the eager loop takes about 22 ms a step on an
+# H100), the wheel's simulate_hybrid
+# over the 21c lanes GRAPH_WHEEL_SECONDS deep (169 of them strike, the first
+# at about 0.5 s).
+GRAPH_BALL_STEPS = 120
+GRAPH_WHEEL_SECONDS = 0.6
+# 21c: the wheel over 1,024 pushes uniform in WHEEL_PUSH_RANGE from numpy's
+# seed SEED, HYBRID_LANE_SECONDS deep, each lane's strikes held to the JAX
+# package's on the same push (SYSTEMS_JAX_F32) within WHEEL_LANE_SLACK, and
+# at most WHEEL_LANES_DIFFERING lanes differing at all: a lane differs only
+# where a strike falls within float32 rounding of the window's end, and the
+# port's float32 on the CPU differs in none of the 1,024.  LANE_CHECKS_SYS
+# lanes are held to their one-lane runs.
+HYBRID_LANES = 1024
+HYBRID_LANE_SECONDS = 3.0
+WHEEL_PUSH_RANGE = (0.9, 1.6)
+WHEEL_LANE_SLACK = 1
+WHEEL_LANES_DIFFERING = 8
+LANE_CHECKS_SYS = 4
+# The adaptive integrator over lanes: the oscillator to 2 pi at accuracy 1e-5,
+# back to x0 within 1e-4 (the CPU's float32 5.4e-5 to 6.6e-5 over the draws
+# of seeds 0-9), steps within 6 of the float64 run's: the CPU's float32
+# differs by at most 4 over seeds 0-9 (at seeds 0, 2 and 4; 2 or 3 at the
+# others), as the card did at seed 0.
+ADAPTIVE_LANES = 1024
+ADAPTIVE_ACCURACY = 1e-5
+ADAPTIVE_RETURN_BOUND = 1e-4
+ADAPTIVE_STEP_SLACK = 6
+# TAMSI, PGS and SAP over the bench world's lanes; the first 64 held to the
+# CPU's float64 solves at 100x the CPU's float32 spread on them (SAP 1.0e-6,
+# TAMSI 5.9e-5, PGS 3.8e-7 of max |v|).
+CONTACT_LANES = 1024
+CONTACT_CHECK_LANES = 64
+PGS_SWEEPS = 100
+CONTACT_PARITY = {"sap": 1e-4, "tamsi": 6e-3, "pgs gs": 4e-5, "pgs jacobi": 4e-5}
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -1588,7 +1743,7 @@ def implicit_rollout(torch, mk, gc, paddle_blob, bench_world, lanes, dev, card,
         check(bool((its == unroll).all()), f"{tag}: a solve took other than {unroll} iterations")
     else:
         check(res_conv <= gp.rel_tolerance, f"{tag}: a solve below the cap ended at {res_conv:.3e}")
-    return {"world": world, "params": w.params, "final": out, "controls": us,
+    return {"world": world, "params": w.params, "final": out, "controls": us, "states": states,
             "launches": launches, "substeps_per_s": lanes * substeps / wall,
             "device_s": start.elapsed_time(end) / 1e3, "peak_memory_bytes": peak,
             "iterations_median": float(its.double().median()), "capped": int(capped.sum()),
@@ -1635,6 +1790,51 @@ def implicit_k1_mass(torch, mpm, mk, config, state, flush, card, tag=None):
     return out
 
 
+def implicit_repeat(torch, gc, bench_world, first, plain, card):
+    """13c: the K = 64 rollout with the kernels and its xla_only twin run
+    once more, each bit for bit its first run (the Newton's scatters and the
+    plain P2G sum in a fixed order, ``solver.scatter_sum``); and the
+    Newton's scatter timed at this rollout's shape, in its fixed order
+    beside the ``index_add_`` it replaced (atomics, no fixed order)."""
+    from drake_tpu_torch.mpm import solver as mpm
+
+    for label, res in (("kernel", first), ("xla_only", plain)):
+        again, _ = bench_world.rollout(res["world"], res["params"], res["states"],
+                                       res["controls"] * 1.0001)
+        pairs = ((again.particles.x, res["final"].particles.x),
+                 (again.particles.v, res["final"].particles.v),
+                 (again.particles.F, res["final"].particles.F), (again.rigid, res["final"].rigid))
+        same = all(torch.equal(a, b) for a, b in pairs)
+        diff = max(float((a - b).abs().max()) for a, b in pairs)
+        print(f"[implicit world] {label} K={IMPLICIT_LANES[0]} rollout run twice: bit for bit "
+              f"{same} (max |d| {diff:.3e}) [{card}]")
+        check(same, f"implicit world: two runs of the {label} rollout differ")
+    config = first["world"].mpm_config
+    x = first["final"].particles.x
+    st = gc._stencil(config, x)
+    vals = torch.randn(x.shape, generator=torch.Generator(device=x.device).manual_seed(SEED),
+                       device=x.device)
+    L = x.shape[0]
+
+    def atomic():
+        contrib = st.weight[..., None] * vals[..., None, :]
+        out = torch.zeros((L * st.nodes + 1, 3), dtype=vals.dtype, device=vals.device)
+        out.index_add_(0, st.drop_index, contrib.reshape(-1, 3))
+        return out[:-1].reshape(L, st.nodes, 3)
+
+    fixed = gc._scatter(st, st.weight, vals)
+    e = float((fixed - atomic()).abs().max() / fixed.abs().max())
+    check(torch.equal(fixed, gc._scatter(st, st.weight, vals)), "the fixed-order scatter varies")
+    ms_fixed = time_ms(torch, lambda: gc._scatter(st, st.weight, vals), KERNEL_REPS)
+    ms_atomic = time_ms(torch, atomic, KERNEL_REPS)
+    ms_plan = time_ms(torch, lambda: mpm.scatter_plan(st.drop_index, L * st.nodes + 1),
+                      KERNEL_REPS)
+    print(f"[implicit world] the Newton's scatter at L={L}, {x.shape[1]} particles x 27 taps "
+          f"into {L * st.nodes} nodes x 3: fixed order {ms_fixed!r} ms (its plan, once a "
+          f"substep, {ms_plan!r} ms), index_add_ {ms_atomic!r} ms; the two {e:.1e} apart of "
+          f"max |.| [{card}]")
+
+
 def implicit_phase(torch, mpm, mk, gc, paddle_blob, bench_world, dev, card, profile):
     """Phase 13: the dense implicit world on the card (13a parity, 13b the
     rollouts at IMPLICIT_LANES, 13c kernel against plain at the first, K1
@@ -1646,14 +1846,16 @@ def implicit_phase(torch, mpm, mk, gc, paddle_blob, bench_world, dev, card, prof
     first = runs[IMPLICIT_LANES[0]]
     plain = implicit_rollout(torch, mk, gc, paddle_blob, bench_world, IMPLICIT_LANES[0], dev,
                              card, xla_only=True)
+    implicit_repeat(torch, gc, bench_world, first, plain, card)
     k, p = first["final"], plain["final"]
-    dx = float((k.particles.x - p.particles.x).abs().max())
-    dv = float((k.particles.v - p.particles.v).abs().max())
-    dr = float((k.rigid - p.rigid).abs().max())
-    ok = max(dx, dv, dr) <= IMPLICIT_MAX_DIFF_PATHS
-    print(f"[implicit world] kernel vs plain after the K={IMPLICIT_LANES[0]} rollout: max|dx| "
-          f"{dx:.3e}, max|dv| {dv:.3e}, max|d rigid| {dr:.3e} (<= "
-          f"{IMPLICIT_MAX_DIFF_PATHS:.0e}) {'ok' if ok else 'FAIL'}; kernel/plain substeps/s "
+    d = {"x": k.particles.x - p.particles.x, "q": k.rigid[:, 0] - p.rigid[:, 0],
+         "v": k.particles.v - p.particles.v, "paddle v": k.rigid[:, 1] - p.rigid[:, 1]}
+    d = {name: float(t.abs().max()) for name, t in d.items()}
+    ok = all(d[name] <= bound for name, bound in IMPLICIT_MAX_DIFF.items())
+    print(f"[implicit world] kernel vs plain after the K={IMPLICIT_LANES[0]} rollout, max "
+          f"|difference|: " + ", ".join(f"{name} {d[name]:.3e} (<= {IMPLICIT_MAX_DIFF[name]:.0e})"
+                                      for name in IMPLICIT_MAX_DIFF)
+          + f" {'ok' if ok else 'FAIL'}; kernel/plain substeps/s "
           f"{first['substeps_per_s'] / plain['substeps_per_s']!r}")
     check(ok, "implicit world: kernel and plain paths disagree")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -2822,8 +3024,8 @@ def timed_call(torch, fn, warm_up=True):
 def opt_batched(torch, sc, dev, card):
     """Phase 20c: each back end at full width, float64 with its gates after a
     warm-up call, then float32 reported without a gate or a warm-up (the
-    float64 calls have loaded the code; the float32 conic ADMM runs its 4,000
-    iterations).  Returns the inputs of 20d."""
+    float64 calls have loaded the code; the float32 conic ADMM runs its
+    OPT_F32_CONIC_ITERS iterations).  Returns the inputs of 20d."""
     from drake_tpu_torch.solvers import al_newton, block_cholesky, conic, ipm, lcp, qp
 
     out = {}
@@ -2893,8 +3095,9 @@ def opt_batched(torch, sc, dev, card):
                 ("max eigenvalue sdp", sc.max_eig_sdps(mats), np.linalg.eigvalsh(mats)[:, -1])):
             c, A, b = (torch.tensor(np.asarray(a), dtype=dtype, device=dev) for a in (c, A, b))
             cone = conic.ConeDims(**dims)
-            sol, ms, host, peak = timed_call(torch, lambda: conic.solve_conic(None, c, A, b, cone),
-                                              f64)
+            opts = conic.ConicOptions() if f64 else conic.ConicOptions(max_iters=OPT_F32_CONIC_ITERS)
+            sol, ms, host, peak = timed_call(
+                torch, lambda: conic.solve_conic(None, c, A, b, cone, opts), f64)
             err = float(np.abs(sol.x[:, 0].double().cpu().numpy() - want).max())
             extra = (f"{name}: converged {int(sol.converged.sum())}/{OPT_CONIC_LANES}, iterations "
                      f"max {int(sol.iterations.max())}; t* off by {err:.3e}"
@@ -2993,6 +3196,593 @@ def opt_phase(torch, mk, dev, card, profile):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: continuous-time and hybrid simulation (systems/simulator.py,
+# math/trajectories.py, primitives, diagram, controllers, multibody/plant,
+# the continuous contact plant, TAMSI, PGS, comms) and the three demos.
+# ---------------------------------------------------------------------------
+
+
+def systems_mods():
+    from drake_tpu_torch import bench
+    from drake_tpu_torch.contact import pgs, sap, tamsi
+    from drake_tpu_torch.contact import plant as cplant
+    from drake_tpu_torch.control import controllers
+    from drake_tpu_torch.examples import bouncing_ball, compass_gait, rimless_wheel
+    from drake_tpu_torch.math import trajectories
+    from drake_tpu_torch.models import pendulum
+    from drake_tpu_torch.multibody import plant as mplant
+    from drake_tpu_torch.multibody.model import ModelBuilder
+    from drake_tpu_torch.systems import comms, diagram, primitives, simulator
+    from drake_tpu_torch.systems.base import ContinuousSystem, DiscreteSystem
+
+    return types.SimpleNamespace(**{k: v for k, v in locals().items()})
+
+
+def contact_lanes_sys(torch, m, lanes, device, dtype, seed=SEED, first=None):
+    """(data, contact) of the bench world (the iiwa and its box, 9
+    contacts) at `lanes` states drawn on the CPU from a generator seeded
+    `seed` (only the `first` of them with `first`): the arm about its home
+    pose, the box 2 mm into the ground at a random tilt, random velocities
+    and arm torques; h = 0.01."""
+    g = torch.Generator().manual_seed(seed)
+    f64 = dict(dtype=torch.float64)
+    home = torch.tensor([0.0, 0.6, 0.0, -1.75, 0.0, 1.0, 0.0], **f64)
+    q = torch.zeros((lanes, 14), **f64)
+    q[:, :7] = home + 0.3 * torch.randn((lanes, 7), generator=g, **f64)
+    quat = torch.tensor([1.0, 0, 0, 0], **f64) + 0.05 * torch.randn((lanes, 4), generator=g, **f64)
+    q[:, 7:11] = quat / quat.norm(dim=1, keepdim=True)
+    q[:, 11:13] = torch.tensor([0.62, 0.0], **f64) + 0.05 * torch.randn((lanes, 2), generator=g,
+                                                                        **f64)
+    q[:, 13] = 0.058
+    v = 0.3 * torch.randn((lanes, 13), generator=g, **f64)
+    tau = torch.cat([20.0 * torch.randn((lanes, 7), generator=g, **f64),
+                     torch.zeros((lanes, 6), **f64)], dim=1)
+    model, params, scene, _ = m.bench.build_world(dtype, device)
+    q, v, tau = (a[:first].to(device=device, dtype=dtype) for a in (q, v, tau))
+    return m.sap.assemble(model, params, scene, q, v, tau, 0.01)
+
+
+def systems_parity_values(torch, device, dtype):
+    """Phase 21a's quantities of modules 1-9 on small seeded inputs, in
+    `dtype` on `device`: (values {name: float64 numpy}, counts {name: int
+    numpy})."""
+    m = systems_mods()
+    kw = dict(dtype=dtype, device=device)
+    rng = np.random.default_rng(SEED)
+    val, cnt = {}, {}
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a), **kw)
+
+    def put(name, x):
+        val[name] = x.detach().double().cpu().numpy()
+
+    # 1. trajectories
+    breaks = np.cumsum(np.concatenate([[0.3], rng.uniform(0.2, 1.0, 6)]))
+    y, yd = rng.standard_normal((2, 7, 3))
+    tq = T(np.concatenate([breaks, [breaks[-1] + 0.3], rng.uniform(breaks[0], breaks[-1], 25)]))
+    PP = m.trajectories.PiecewisePolynomial
+    for name, pp in (("zoh", PP.zero_order_hold(T(breaks), T(y))),
+                     ("foh", PP.first_order_hold(T(breaks), T(y))),
+                     ("hermite", PP.cubic_hermite(T(breaks), T(y), T(yd))),
+                     ("spline", PP.cubic_with_continuous_second_derivatives(T(breaks), T(y)))):
+        put(f"traj {name} value", pp.value(tq))
+        put(f"traj {name} derivative", pp.derivative_value(tq))
+    bs = m.trajectories.BsplineTrajectory.make_clamped_uniform(T(rng.standard_normal((8, 2))),
+                                                               t0=0.3, tf=float(breaks[-1]))
+    put("traj bspline", torch.cat([bs.value(tq), bs.derivative_value(tq)], -1))
+    bz = m.trajectories.BezierCurve(breaks=T([0.3, breaks[-1]]),
+                                    control_points=T(rng.standard_normal((6, 2))))
+    put("traj bezier", torch.cat([bz.value(tq), bz.derivative_value(tq)], -1))
+    pose = m.trajectories.PiecewisePose.make(T(breaks[:4]), T(rng.standard_normal((4, 3))),
+                                             T(rng.standard_normal((4, 4))))
+    X = pose.value(tq)
+    put("traj pose", torch.cat([X.R.flatten(-2), X.p, pose.velocity(tq)], -1))
+
+    # 2. the simulator
+    osc = m.ContinuousSystem(f=lambda p, x, u, t: torch.stack([x[..., 1], -x[..., 0]], -1),
+                             num_states=2, num_inputs=0)
+    x0 = T(rng.standard_normal((8, 2)))
+    xf, stats = m.simulator.simulate_adaptive(osc, None, x0, lambda t, x: x[..., :0],
+                                              t_final=2 * math.pi, accuracy=1e-5)
+    put("adaptive x", xf)
+    put("adaptive final time", stats["final_time"])
+    cnt["adaptive steps"] = stats["num_steps"].cpu().numpy()
+    cnt["adaptive rejects"] = stats["num_rejected"].cpu().numpy()
+    ball = m.ContinuousSystem(f=lambda p, x, u, t: torch.stack(
+        [x[..., 1], -9.81 + 0.0 * x[..., 0]], -1), num_states=2, num_inputs=0)
+    floor = m.simulator.WitnessFunction(
+        g=lambda p, x, t: x[..., 0],
+        reset=lambda p, x, t: torch.stack([torch.clamp_min(x[..., 0], 0.0), -0.8 * x[..., 1]], -1))
+    ceiling = m.simulator.WitnessFunction(
+        g=lambda p, x, t: 0.5 - x[..., 0],
+        reset=lambda p, x, t: torch.stack([x[..., 0], -x[..., 1]], -1))
+    hx0 = T(np.stack([rng.uniform(0.1, 0.45, 8), rng.uniform(-2.0, 2.0, 8)], 1))
+    with torch.no_grad():
+        xs, _, counts = m.simulator.simulate_hybrid(ball, None, hx0, 1.0, 0.005, (floor, ceiling))
+    put("hybrid xs", xs)
+    cnt["hybrid events"] = counts.cpu().numpy()
+    us = torch.zeros((60, 0), **kw)
+    with torch.no_grad():
+        oxs, ots = m.simulator.simulate(osc, None, T([1.0, 0.0]), us, 0.1)
+    dense = m.simulator.dense_output(osc, None, oxs, ots, us)
+    put("dense output", dense.value(T(np.linspace(0.0, 6.0, 41))))
+
+    # 3. primitives, 4. diagram
+    A, B = rng.standard_normal((3, 3)), rng.standard_normal((3, 2))
+    lin = m.primitives.linear_system(T(A), T(B))
+    xl, ul = T(rng.standard_normal((8, 3))), T(rng.standard_normal((8, 2)))
+    put("linear system", torch.cat([lin.f(None, xl, ul), lin.output(None, xl, ul)], -1))
+    mlp = m.primitives.MlpParams(weights=(T(rng.standard_normal((3, 16))),
+                                          T(rng.standard_normal((16, 2)))),
+                                 biases=(T(rng.standard_normal(16)), T(rng.standard_normal(2))))
+    put("mlp", m.primitives.mlp_apply(mlp, xl))
+    dd = m.primitives.state_interpolator_with_discrete_derivative(2, 0.1)
+    ddx = m.simulator.simulate_discrete(dd, None, torch.zeros(5, **kw),
+                                        T(rng.standard_normal((12, 2))))
+    put("discrete derivative", torch.cat([ddx, dd.output(None, ddx, ddx[..., :2])], -1))
+    hold = m.primitives.first_order_hold(T(breaks), T(y))
+    put("first order hold", hold(tq))
+    integ = m.primitives.linear_system(torch.zeros((1, 1), **kw), torch.ones((1, 1), **kw))
+    chain = m.diagram.cascade(integ, integ)
+    loop = m.diagram.feedback(m.primitives.linear_system(T([[1.0]]), T([[1.0]])),
+                              lambda p, yy, r, t: 5.0 * (r - yy))
+    with torch.no_grad():
+        cxs, _ = m.simulator.simulate(chain, (None, None), torch.zeros(2, **kw),
+                                      torch.ones((300, 1), **kw), 1e-3)
+        fxs, _ = m.simulator.simulate(loop, None, T([1.0]), T(rng.standard_normal((300, 1))), 1e-3)
+    put("diagram cascade", cxs)
+    put("diagram feedback", fxs)
+
+    # 5. controllers, 6. multibody/plant
+    psys = m.pendulum.make_system(m.pendulum.default_params(dtype, device))
+    # The desired state is made here, not in the policy: a closed loop on
+    # the card is a CUDA graph, which copies nothing from the host.
+    desired = (T([0.5]), torch.zeros(1, **kw))
+    pid = m.controllers.pid_controller([20.0], [10.0], [5.0], lambda s: desired, 1e-3,
+                                       device=device)
+    with torch.no_grad():
+        pxs, pus, _ = m.simulator.simulate_controlled(psys, psys.default_params,
+                                                      torch.zeros(2, **kw), pid, 500, 1e-3,
+                                                      policy_state=torch.zeros(1, **kw))
+    put("pid closed loop", torch.cat([pxs[1:], pus], -1))
+    b = m.ModelBuilder()
+    b.add_body("l1", parent=None, joint_type="revolute", mass=1.2, com=(0, 0, -0.3),
+               inertia_com=np.diag([0.02, 0.03, 0.01]), axis=(0, 1, 0), damping=0.1)
+    b.add_body("l2", parent="l1", joint_type="revolute", mass=0.8, com=(0, 0, -0.25),
+               inertia_com=np.diag([0.01, 0.02, 0.01]), X_PJ_xyz=(0, 0, -0.6), axis=(0, 1, 0))
+    arm, arm_p = b.build(dtype, device)
+    xa = T(rng.standard_normal((8, 4)))
+    idc = m.controllers.inverse_dynamics_controller(
+        arm, arm_p, [30.0, 20.0], [1.0, 2.0], [4.0, 3.0],
+        lambda s, d=(T([0.2, -0.1]), T([0.0, 0.1]), T([0.3, 0.0])): d, 1e-3, device=device)
+    put("inverse dynamics control", idc(T(rng.standard_normal((8, 2))), xa, 0.0)[0])
+    jsc = m.controllers.joint_stiffness_controller(arm, arm_p, [30.0, 20.0], [4.0, 3.0],
+                                                   [0.2, -0.1], device=device)
+    put("joint stiffness control", jsc(None, xa, 0.0))
+    model, params, scene, _ = m.bench.build_world(dtype, device)
+    cdata, contact = contact_lanes_sys(torch, m, 8, device, dtype)
+    plant = m.mplant.make_system(model, params)
+    qb = T(rng.standard_normal((8, 14)) * 0.3 + np.r_[[0, 0.6, 0, -1.75, 0, 1, 0, 1, 0, 0, 0,
+                                                       0.62, 0, 0.06]])
+    vb, ub = T(rng.standard_normal((8, 13)) * 0.3), T(rng.standard_normal((8, 7)) * 10)
+    put("multibody plant", plant.f(params, torch.cat([qb, vb], -1), ub))
+
+    # 7. the continuous contact plant, 8. TAMSI, 9. PGS
+    _, bparams, bsys = m.bouncing_ball.build(dtype, device)
+    bq = np.concatenate([np.tile([1.0, 0, 0, 0, 0, 0], (8, 1)),
+                         0.05 + rng.uniform(-2e-3, 5e-4, (8, 1))], 1)
+    bx = T(np.concatenate([bq, rng.standard_normal((8, 6))], 1))
+    put("continuous contact", bsys.f(bparams, bx, bx[..., :0]))
+    # Tolerances that float32 reaches (the defaults, 1e-6 and 1e-8, it does
+    # not: its solves would run to their caps).
+    q1, v1, sol, _ = m.cplant.step_with_forces(model, params, scene, qb, vb,
+                                               torch.cat([ub, torch.zeros((8, 6), **kw)], -1),
+                                               0.01, m.sap.SapParameters(rel_tolerance=1e-3))
+    put("step with forces", torch.cat([q1, v1], -1))
+    cnt["step with forces SAP iterations"] = sol.iterations.cpu().numpy()
+    tam = m.tamsi.solve_tamsi(cdata, contact, 0.01, rel_tolerance=1e-3)
+    put("tamsi", torch.cat([tam.v, tam.gamma.flatten(-2)], -1))
+    cnt["tamsi iterations"] = tam.iterations.cpu().numpy()
+    for method in ("gs", "jacobi"):
+        with torch.no_grad():
+            ps = m.pgs.solve_pgs(cdata, 100, method)
+        put(f"pgs {method}", torch.cat([ps.v, ps.gamma.flatten(-2)], -1))
+    return val, cnt
+
+
+def parity_errors(ref, got):
+    """Each quantity's max |got - ref| as a share of max |ref| (of 1 where
+    that is 0)."""
+    out = {}
+    for name, r in ref.items():
+        scale = float(np.max(np.abs(r))) or 1.0
+        out[name] = float(np.max(np.abs(got[name] - r))) / scale
+    return out
+
+
+def systems_parity(torch, dev, card):
+    """21a: the port in float32 on the card against float64 on the CPU,
+    within SYS_PARITY; the counts within SYS_PARITY_COUNTS."""
+    ref, ref_c = systems_parity_values(torch, "cpu", torch.float64)
+    got, got_c = systems_parity_values(torch, dev, torch.float32)
+    errs = parity_errors(ref, got)
+    for name, e in errs.items():
+        bound = SYS_PARITY[name]
+        print(f"[systems parity] {name}: {e:.3e} of scale (<= {bound:.1e}) "
+              f"{'ok' if e <= bound else 'FAIL'} [{card}]")
+        check(e <= bound, f"systems parity: {name} {e:.3e} over {bound:.1e}")
+    for name, r in ref_c.items():
+        d = int(np.max(np.abs(got_c[name].astype(np.int64) - r.astype(np.int64))))
+        slack = SYS_PARITY_COUNTS.get(name, 0)
+        print(f"[systems parity] {name}: card {got_c[name].tolist()} CPU {r.tolist()}, max "
+              f"|difference| {d} (<= {slack}) {'ok' if d <= slack else 'FAIL'} [{card}]")
+        check(d <= slack, f"systems parity: {name} counts differ by {d}")
+
+
+def systems_demos(torch, dev, card):
+    """21b: the three demos at the reference's size and depth, float32 on
+    the card, with the reference's checks and the JAX package's float32
+    readings (SYSTEMS_JAX_F32); returns each demo's seconds."""
+    m = systems_mods()
+    ref = SYSTEMS_JAX_F32
+    seconds = {}
+    ball = m.bouncing_ball.run(device=dev, dtype=torch.float32)
+    seconds["bouncing_ball"] = ball["seconds"]
+    check(ball["ok"], "the bouncing ball failed its checks")
+    d_ratio = abs(ball["ratio"] - ref["ball"]["ratio"])
+    d_flight = abs(ball["t_flight"] - ref["ball"]["t_flight"])
+    print(f"[systems demos] bouncing ball: {len(ball['apexes'])} apexes (JAX "
+          f"{ref['ball']['n_apexes']}), apex ratio {ball['ratio']!r} (JAX {ref['ball']['ratio']!r}, "
+          f"|d| {d_ratio:.3e} <= {DEMO_BOUNDS['ball ratio']}), apex-to-apex {ball['t_flight']!r} "
+          f"s (JAX {ref['ball']['t_flight']!r}, |d| {d_flight:.3e} <= "
+          f"{DEMO_BOUNDS['ball t_flight']}), {STEPS_BALL} rk4 steps and the dense output in "
+          f"{ball['seconds']!r} s [{card}]")
+    check(d_ratio <= DEMO_BOUNDS["ball ratio"] and d_flight <= DEMO_BOUNDS["ball t_flight"]
+          and len(ball["apexes"]) == ref["ball"]["n_apexes"], "the bouncing ball is off the JAX run")
+    ball_graph_against_eager(torch, m, dev, card)
+    wheel = m.rimless_wheel.run(device=dev, dtype=torch.float32)
+    seconds["rimless_wheel"] = wheel["seconds"]
+    check(wheel["ok"], "the rimless wheel failed its checks")
+    d_w = abs(wheel["w_meas"] - ref["wheel"]["w_meas"])
+    print(f"[systems demos] rimless wheel: {wheel['strikes']} strikes (JAX "
+          f"{ref['wheel']['strikes']}), post-impact speed {wheel['w_meas']!r} (JAX "
+          f"{ref['wheel']['w_meas']!r}, |d| {d_w:.3e} <= {DEMO_BOUNDS['wheel speed']}; closed "
+          f"form {wheel['w_star']!r}), 20,000 macro steps in {wheel['seconds']!r} s [{card}]")
+    check(abs(wheel["strikes"] - ref["wheel"]["strikes"]) <= DEMO_BOUNDS["strikes"]
+          and d_w <= DEMO_BOUNDS["wheel speed"], "the rimless wheel is off the JAX run")
+    gait = m.compass_gait.run(device=dev, dtype=torch.float32)
+    seconds["compass_gait"] = gait["seconds"]
+    check(gait["ok"], "the compass gait failed its checks")
+    d_post = float(np.max(np.abs(gait["post"][-1] - np.asarray(ref["compass"]["post_last"]))))
+    print(f"[systems demos] compass gait: {gait['strikes']} strikes (JAX "
+          f"{ref['compass']['strikes']}), last post-impact state {gait['post'][-1].tolist()} "
+          f"(JAX {ref['compass']['post_last']}, max |d| {d_post:.3e} <= "
+          f"{DEMO_BOUNDS['gait state']}), contraction {gait['d_last']!r} (JAX "
+          f"{ref['compass']['d_last']!r}), 6,000 macro steps in {gait['seconds']!r} s [{card}]")
+    check(abs(gait["strikes"] - ref["compass"]["strikes"]) <= DEMO_BOUNDS["strikes"]
+          and d_post <= DEMO_BOUNDS["gait state"], "the compass gait is off the JAX run")
+    return seconds
+
+
+def graph_and_eager(torch, run):
+    """`run()` with autograd off (on the card: the CUDA graphs) and on (the
+    eager loop), each with its seconds of host wall."""
+    outs = []
+    for grad in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.set_grad_enabled(grad):
+            out = tuple(o.detach() for o in run())
+        torch.cuda.synchronize()
+        outs.append((out, time.perf_counter() - t0))
+    return outs
+
+
+def ball_graph_against_eager(torch, m, dev, card):
+    """21b: the ball's graph-replayed simulate bit for bit its eager loop,
+    GRAPH_BALL_STEPS rk4 steps from 2 mm above the ground, falling at 1 m/s
+    and sliding at 0.3 m/s, through its first contact."""
+    bb = m.bouncing_ball
+    _, params, system = bb.build(torch.float32, dev)
+    x0 = torch.tensor([1, 0, 0, 0, 0, 0, bb.RADIUS + 2e-3, 0, 0, 0, 0.3, 0, -1.0],
+                      dtype=torch.float32, device=dev)
+    us = torch.zeros((GRAPH_BALL_STEPS, 0), dtype=torch.float32, device=dev)
+    (graph, t_graph), (eager, t_eager) = graph_and_eager(
+        torch, lambda: m.simulator.simulate(system, params, x0, us, bb.H))
+    same = torch.equal(graph[0], eager[0])
+    depth = float(bb.RADIUS - graph[0][:, 6].min())
+    print(f"[systems demos] bouncing ball, {GRAPH_BALL_STEPS} steps through a contact (deepest "
+          f"{depth:.3e} m): graph-replayed simulate bit for bit the eager loop: {same} (graph "
+          f"{t_graph!r} s, eager {t_eager!r} s) [{card}]")
+    check(depth > 0, "ball graph check: no contact in its steps")
+    check(same, "ball: the graph-replayed simulate differs from the eager loop")
+
+
+def lane_line(torch, tag, lanes, wall, card):
+    print(f"[systems lanes] {tag}: {lanes} lanes in {wall!r} s, {lanes / wall!r} lanes/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+
+
+def systems_lanes(torch, dev, card):
+    """21c: the wheel's simulate_hybrid over HYBRID_LANES pushes, the
+    adaptive integrator over ADAPTIVE_LANES oscillators and TAMSI, PGS and SAP
+    over CONTACT_LANES of the bench world, each in one call; returns the
+    inputs of the profile."""
+    m = systems_mods()
+    out = {}
+    # The wheel over lanes: each lane's strikes against its one-lane run.
+    pushes = torch.as_tensor(np.random.default_rng(SEED).uniform(
+        *WHEEL_PUSH_RANGE, HYBRID_LANES).astype(np.float32), device=dev)
+    m.rimless_wheel.rollout(pushes[:2], t_final=0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xs, counts = m.rimless_wheel.rollout(pushes, t_final=HYBRID_LANE_SECONDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lane_line(torch, f"rimless wheel simulate_hybrid, {HYBRID_LANE_SECONDS} s "
+              f"({int(round(HYBRID_LANE_SECONDS / 1e-3))} macro steps)", HYBRID_LANES, wall, card)
+    counts = counts[:, 0].cpu()
+    ref = SYSTEMS_JAX_F32["wheel_lanes"]
+    jax_counts = torch.tensor([int(c) for c in ref["strikes"]], dtype=counts.dtype)
+    d = (counts - jax_counts).abs()
+    print(f"[systems lanes] wheel strikes: sum {int(counts.sum())} (JAX float32 CPU "
+          f"{ref['strikes_sum']}), min {int(counts.min())} max {int(counts.max())} (JAX "
+          f"{ref['strikes_min']}, {ref['strikes_max']}); against the JAX package lane by lane: "
+          f"max |d| {int(d.max())} (<= {WHEEL_LANE_SLACK}), {int((d > 0).sum())} lanes differ "
+          f"(<= {WHEEL_LANES_DIFFERING}), at lanes {torch.nonzero(d).flatten().tolist()[:16]} "
+          f"[{card}]")
+    check(bool(torch.isfinite(xs).all()), "wheel lanes: non-finite state")
+    check(int(d.max()) <= WHEEL_LANE_SLACK and int((d > 0).sum()) <= WHEEL_LANES_DIFFERING,
+          "wheel lanes: the strikes are off the JAX run")
+    for lane in np.linspace(0, HYBRID_LANES - 1, LANE_CHECKS_SYS).astype(int):
+        xs1, c1 = m.rimless_wheel.rollout(pushes[lane], t_final=HYBRID_LANE_SECONDS)
+        d = float((xs1 - xs[lane]).abs().max())
+        print(f"[systems lanes] wheel lane {lane}: {int(c1[0])} strikes alone, {int(counts[lane])} "
+              f"among the lanes, max |dx| {d:.3e} [{card}]")
+        check(int(c1[0]) == int(counts[lane]), f"wheel lane {lane}: its strikes differ alone")
+    out["pushes"] = pushes
+    del xs
+    # The graph-replayed simulate_hybrid (its step and its isolation, two
+    # graphs on shared buffers) bit for bit its eager loop over the lanes.
+    rw = m.rimless_wheel
+    wsys, touchdown = rw.make_system()
+    wx0 = torch.stack([torch.full_like(pushes, rw.SLOPE - rw.ALPHA), pushes], dim=-1)
+    (graph, t_graph), (eager, t_eager) = graph_and_eager(
+        torch, lambda: m.simulator.simulate_hybrid(wsys, None, wx0, GRAPH_WHEEL_SECONDS, rw.DT,
+                                                   witnesses=(touchdown,)))
+    same = torch.equal(graph[0], eager[0]) and torch.equal(graph[2], eager[2])
+    struck = int((graph[2] > 0).sum())
+    print(f"[systems lanes] wheel over {HYBRID_LANES} lanes, {GRAPH_WHEEL_SECONDS} s: "
+          f"{struck} lanes struck, {int(graph[2].sum())} strikes; graph-replayed simulate_hybrid "
+          f"bit for bit the eager loop in xs and counts: {same} (graph {t_graph!r} s, eager "
+          f"{t_eager!r} s) [{card}]")
+    check(struck > 0, "wheel graph check: no lane struck")
+    check(same, "wheel lanes: the graph-replayed simulate_hybrid differs from the eager loop")
+    # The adaptive integrator over lanes, float32 against the card's float64.
+    osc = m.ContinuousSystem(f=lambda p, x, u, t: torch.stack([x[..., 1], -x[..., 0]], -1),
+                             num_states=2, num_inputs=0)
+    x0 = torch.randn((ADAPTIVE_LANES, 2), generator=torch.Generator().manual_seed(SEED),
+                     dtype=torch.float64).to(dev)
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xf, st = m.simulator.simulate_adaptive(osc, None, x0.to(dtype), lambda t, x: x[..., :0],
+                                               t_final=2 * math.pi, accuracy=ADAPTIVE_ACCURACY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[dtype] = (xf.double(), st)
+        lane_line(torch, f"simulate_adaptive {str(dtype)[6:]}, oscillator to 2 pi at accuracy "
+                  f"{ADAPTIVE_ACCURACY}, {int(st['num_steps'].max())} steps at most", ADAPTIVE_LANES,
+                  wall, card)
+    (x64, s64), (x32, s32) = res[torch.float64], res[torch.float32]
+    err = float((x32 - x0).abs().max())
+    dsteps = int((s32["num_steps"] - s64["num_steps"]).abs().max())
+    print(f"[systems lanes] adaptive: x(2 pi) - x0 max {err:.3e} (float64 "
+          f"{float((x64 - x0).abs().max()):.3e}; <= {ADAPTIVE_RETURN_BOUND}), steps a lane "
+          f"float32 {int(s32['num_steps'].min())}-{int(s32['num_steps'].max())}, float64 "
+          f"{int(s64['num_steps'].min())}-{int(s64['num_steps'].max())}, max |d steps| {dsteps} "
+          f"(<= {ADAPTIVE_STEP_SLACK}) [{card}]")
+    check(err <= ADAPTIVE_RETURN_BOUND and int(s32["num_steps"].max()) < 500,
+          "adaptive lanes: the oscillator did not return")
+    check(dsteps <= ADAPTIVE_STEP_SLACK, "adaptive lanes: float32 steps off the float64 run")
+    out["adaptive"] = (osc, x0.float())
+    # TAMSI, PGS (both sweeps) and SAP on the same SapData of the bench
+    # world; the first CONTACT_CHECK_LANES held to the CPU's float64 solves.
+    sols = {}
+    for dtype, device, first in ((torch.float32, dev, None),
+                                 (torch.float64, "cpu", CONTACT_CHECK_LANES)):
+        data, contact = contact_lanes_sys(torch, m, CONTACT_LANES, device, dtype, first=first)
+        for name, solve in contact_solvers(m, data, contact):
+            with torch.no_grad():
+                if device == dev:
+                    solve()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                sols[name, device] = solve()
+                if device == dev:
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    lane_line(torch, f"{name} on the bench world (9 contacts, float32)",
+                              CONTACT_LANES, wall, card)
+                    check(bool(torch.isfinite(sols[name, dev].v).all()),
+                          f"{name}: non-finite velocities")
+        if device == dev:
+            out["contact"] = (data, contact)
+    for name in CONTACT_PARITY:
+        ref = sols[name, "cpu"].v
+        got = sols[name, dev].v[:CONTACT_CHECK_LANES].double().cpu()
+        e = float((got - ref).abs().max() / ref.abs().max())
+        print(f"[systems lanes] {name}: card float32 against CPU float64 on the first "
+              f"{CONTACT_CHECK_LANES} lanes {e:.3e} of max |v| (<= {CONTACT_PARITY[name]:.1e}) "
+              f"[{card}]")
+        check(e <= CONTACT_PARITY[name], f"{name}: the card is off the CPU's solve")
+    its = sols["tamsi", dev].iterations.cpu()
+    print(f"[systems lanes] TAMSI iterations median {float(its.double().median())!r}, max "
+          f"{int(its.max())}; SAP iterations median "
+          f"{float(sols['sap', dev].iterations.double().median())!r} [{card}]")
+    # At physics level, as tests/test_contact.py's TestPgs and TestTamsi hold
+    # them: CONTACT_LANES slides of the sphere on the ground.
+    sphere_physics(torch, m, dev, card)
+    return out
+
+
+def contact_solvers(m, data, contact):
+    return (("sap", lambda: m.sap.solve_sap(data, data.v_star)),
+            ("tamsi", lambda: m.tamsi.solve_tamsi(data, contact, 0.01)),
+            ("pgs gs", lambda: m.pgs.solve_pgs(data, PGS_SWEEPS, "gs")),
+            ("pgs jacobi", lambda: m.pgs.solve_pgs(data, PGS_SWEEPS, "jacobi")))
+
+
+def sphere_physics(torch, m, dev, card):
+    """TAMSI and PGS against SAP on CONTACT_LANES lanes of test_contact.py's
+    sphere sliding on the ground (one contact, the unique solution), slides
+    uniform in [0, 0.5] m/s, float32: PGS (both sweeps, 400) within 2 Rn
+    gamma_n + 5e-3 of SAP in every lane, TAMSI (its own sphere: k 1e5,
+    falling at 0.2 m/s) within 2e-2, as the JAX tests hold them."""
+    from drake_tpu_torch.geometry import shapes as sh
+    from drake_tpu_torch.geometry.scene import CollisionGeometry, CollisionScene
+
+    vx = torch.as_tensor(np.random.default_rng(SEED).uniform(0.0, 0.5, CONTACT_LANES),
+                         dtype=torch.float32, device=dev)
+    zero = torch.zeros_like(vx)
+    for label, (k_ball, d, k_ground, pen, vz) in (("pgs", (1e6, 10.0, 1e6, 1e-4, -0.5)),
+                                                  ("tamsi", (1e5, 0.1, 1e10, 2e-4, -0.2))):
+        b = m.ModelBuilder()
+        b.add_body("ball", parent=None, joint_type="floating", mass=1.0,
+                   inertia_com=np.eye(3) * 0.4 * 0.1**2)
+        model, params = b.build(torch.float32, dev)
+        scene = CollisionScene.build([
+            CollisionGeometry(name="ball", body=0, shape=sh.Sphere(0.1), friction=0.5,
+                              stiffness=k_ball, dissipation=d),
+            CollisionGeometry(name="ground", body=-1, shape=sh.HalfSpace(), friction=0.5,
+                              stiffness=k_ground, dissipation=d)])
+        q = torch.stack([zero + 1, zero, zero, zero, zero, zero, zero + 0.1 - pen], -1)
+        v = torch.stack([zero, zero, zero, vx, zero, zero + vz], -1)
+        data, contact = m.sap.assemble(model, params, scene, q, v, torch.zeros_like(v), 0.01)
+        with torch.no_grad():
+            sap_sol = m.sap.solve_sap(data, data.v_star)
+            if label == "pgs":
+                bound = 2 * data.R[..., 0, 2] * sap_sol.gamma[..., 0, 2] + 5e-3
+                for method in ("gs", "jacobi"):
+                    d_v = (m.pgs.solve_pgs(data, 400, method).v - sap_sol.v).abs().amax(-1)
+                    ok = bool((d_v <= bound).all())
+                    print(f"[systems lanes] sphere: pgs {method} (400 sweeps) against SAP max "
+                          f"|dv| {float(d_v.max()):.3e}, every lane within 2 Rn gamma_n + 5e-3: "
+                          f"{ok} [{card}]")
+                    check(ok, f"sphere: pgs {method} is off SAP")
+            else:
+                d_v = (m.tamsi.solve_tamsi(data, contact, 0.01).v - sap_sol.v).abs().amax(-1)
+                ok = bool((d_v <= 2e-2).all())
+                print(f"[systems lanes] sphere: tamsi against SAP max |dv| {float(d_v.max()):.3e} "
+                      f"(<= 2e-2 in every lane: {ok}) [{card}]")
+                check(ok, "sphere: tamsi is off SAP")
+
+
+def systems_comms(torch, dev, card):
+    """21d: a publishing rollout and a closed loop with comms through the
+    port's copy of pubsub, on the card and on the CPU: the messages must
+    be equal."""
+    m = systems_mods()
+    from drake_tpu_torch.io.pubsub import PubSub, deserialize_arrays, serialize_arrays
+
+    def double_integrator(h=0.1):
+        return m.DiscreteSystem(g=lambda p, x, u, t: torch.stack([x[0] + h * x[1],
+                                                                  x[1] + h * u[0]]),
+                                num_states=2, num_inputs=1, time_step=h)
+
+    def run(device, tag):
+        bus = f"memq://smoke_{tag}"
+        node, listener, remote = PubSub(bus), PubSub(bus), PubSub(bus)
+        sub = listener.subscribe("STATE*")
+        us = torch.as_tensor(np.random.default_rng(SEED).standard_normal((30, 1)),
+                             dtype=torch.float32, device=device)
+        xs = m.comms.publishing_rollout(double_integrator(), None,
+                                        torch.tensor([0.5, -0.2], device=device), us, node,
+                                        "STATE_PUB", publish_every=3)
+        remote.publish("CMD", serialize_arrays(u=np.array([1.0], np.float32)))
+        cmd = m.comms.SubscriberState(node, "CMD", shape=(1,), field="u")
+        xs2, us2 = m.comms.closed_loop_rollout_with_comms(
+            double_integrator(), None, torch.zeros(2, device=device),
+            lambda p, x, u_ext, t: u_ext - 0.1 * x[:1], 30, node, "STATE_HIL",
+            command_sub=cmd, publish_every=2)
+        msgs = []
+        while True:
+            msg = listener.receive(sub)
+            if msg is None:
+                break
+            msgs.append((msg[0], deserialize_arrays(msg[1])))
+        return xs.cpu(), xs2.cpu(), msgs
+
+    t0 = time.perf_counter()
+    card_run = run(dev, "card")
+    seconds = time.perf_counter() - t0
+    cpu_run = run("cpu", "cpu")
+    same = (len(card_run[2]) == len(cpu_run[2]) and all(
+        a[0] == b[0] and sorted(a[1]) == sorted(b[1])
+        and all(np.array_equal(a[1][k], b[1][k]) for k in a[1])
+        for a, b in zip(card_run[2], cpu_run[2])))
+    print(f"[systems comms] {len(card_run[2])} messages on the card ({len(cpu_run[2])} on the "
+          f"CPU), channels {sorted({c for c, _ in card_run[2]})}, equal to the CPU run's: {same}; "
+          f"states max |d| {float((card_run[0] - cpu_run[0]).abs().max()):.3e} and "
+          f"{float((card_run[1] - cpu_run[1]).abs().max()):.3e}; {seconds!r} s [{card}]")
+    check(len(card_run[2]) == 11 + 15 and same, "comms: the card's messages differ from the CPU's")
+
+
+def systems_profile(torch, lanes, dev, card):
+    """21 --profile: the ranges tamsi.newton, pgs.sweep, adaptive.step,
+    hybrid.macro and hybrid.isolate (the wheel over its lanes, 200 macro
+    steps), read as phases 8 and 20d read theirs."""
+    m = systems_mods()
+    data, contact = lanes["contact"]
+    profile_layers(torch, lambda: m.tamsi.solve_tamsi(data, contact, 0.01), 1, ("tamsi.newton",),
+                   ("tamsi.newton",), f"solve_tamsi L={CONTACT_LANES}", "solve", card)
+
+    def pgs():
+        with torch.no_grad():
+            m.pgs.solve_pgs(data, PGS_SWEEPS, "gs")
+
+    profile_layers(torch, pgs, 1, ("pgs.sweep",), ("pgs.sweep",),
+                   f"solve_pgs gs L={CONTACT_LANES}", "solve", card)
+    osc, x0 = lanes["adaptive"]
+    profile_layers(torch, lambda: m.simulator.simulate_adaptive(
+        osc, None, x0, lambda t, x: x[..., :0], t_final=2 * math.pi,
+        accuracy=ADAPTIVE_ACCURACY), 1, ("adaptive.step",), ("adaptive.step",),
+        f"simulate_adaptive L={ADAPTIVE_LANES}", "solve", card)
+    steps = 200
+    profile_layers(torch, lambda: m.rimless_wheel.rollout(lanes["pushes"], t_final=steps * 1e-3),
+                   steps, ("hybrid.macro", "hybrid.isolate"), ("hybrid.macro",),
+                   f"rimless wheel L={HYBRID_LANES}", "macro step", card)
+
+
+def systems_phase(torch, mk, dev, card, profile):
+    """Phase 21 (21a-21d, and the profile with `profile`); returns the
+    kernels' launches in it (none: no kernel lies on this path)."""
+    mk.reset_launch_counts()
+    t = [time.perf_counter()]
+    systems_parity(torch, dev, card)
+    t.append(time.perf_counter())
+    systems_demos(torch, dev, card)
+    t.append(time.perf_counter())
+    lanes = systems_lanes(torch, dev, card)
+    t.append(time.perf_counter())
+    systems_comms(torch, dev, card)
+    t.append(time.perf_counter())
+    launches = dict(mk.LAUNCHES)
+    if profile:
+        systems_profile(torch, lanes, dev, card)
+        t.append(time.perf_counter())
+    print("[systems (phase 21)] seconds of host wall of 21a-21d" + (", the profile" if profile
+                                                                   else "") + ": "
+          + json.dumps([round(b - a, 1) for a, b in zip(t, t[1:])]))
+    return launches
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -3027,6 +3817,9 @@ def main(argv) -> int:
           f"device {torch.cuda.get_device_name(0)}")
     if "--opt-only" in argv:  # phase 20 alone, with no result line
         opt_phase(torch, mk, dev, card, "--profile" in argv)
+        return 0
+    if "--systems-only" in argv:  # phase 21 alone, with no result line
+        systems_phase(torch, mk, dev, card, "--profile" in argv)
         return 0
 
     phase_start["1"] = time.perf_counter()
@@ -3301,6 +4094,12 @@ def main(argv) -> int:
     # ---- 20. the optimization layer: MathematicalProgram and its back ends --
     by_path["optimization layer (phase 20)"] = opt_phase(torch, mk, dev, card,
                                                           "--profile" in argv)
+    torch.cuda.empty_cache()
+
+    phase_start["21"] = time.perf_counter()
+    # ---- 21. continuous-time and hybrid simulation, the three demos ---------
+    by_path["continuous and hybrid simulation (phase 21)"] = systems_phase(
+        torch, mk, dev, card, "--profile" in argv)
 
     ends = list(phase_start.values())[1:] + [time.perf_counter()]
     print("[phases] seconds of host wall: " + json.dumps(

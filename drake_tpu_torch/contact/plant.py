@@ -7,10 +7,14 @@ The PyTorch counterpart of ``drake_tpu/contact/plant.py``: one function
 assembles the SAP problem at (q, v), solves it, and advances the positions
 symplectically, q_{t+1} = q + h N(q) v_{t+1}, with quaternions advanced by the
 exponential map.  ``x`` and ``u`` carry the lanes of a batch in their leading
-dimensions.  ``step_with_forces`` and the options of
-``make_discrete_system`` (actuated joints other than every revolute and
-prismatic one, joint limits, couplers, ball/distance/weld constraints, PD
-joints) are not ported yet (ROADMAP.md).
+dimensions.  The options of ``make_discrete_system`` (actuated joints
+other than every revolute and prismatic one, joint limits, couplers,
+ball/distance/weld constraints, PD joints) are not ported yet (ROADMAP.md).
+
+The continuous-time plant with compliant point contact
+(``contact_forces_continuous``, ``make_continuous_contact_system``) is here
+too: Hunt-Crossley normal forces and regularized Coulomb friction on the
+port's scene pairs, for fixed-step or error-controlled integration.
 """
 
 from __future__ import annotations
@@ -18,8 +22,9 @@ from __future__ import annotations
 import torch
 
 from drake_tpu_torch.contact import sap
-from drake_tpu_torch.geometry.scene import CollisionScene
+from drake_tpu_torch.geometry.scene import CollisionScene, contact_frame
 from drake_tpu_torch.math import rotations as rot
+from drake_tpu_torch.multibody import kinematics as kin
 from drake_tpu_torch.multibody.model import (
     FLOATING,
     PRISMATIC,
@@ -91,3 +96,56 @@ def make_discrete_system(
 
     return DiscreteSystem(g=g, num_states=nq + nv, num_inputs=nu, time_step=h,
                           default_params=params)
+
+
+def step_with_forces(model, params, scene, q, v, tau, h, sap_params=sap.SapParameters()):
+    """One SAP step returning (q_next, v_next, the SAP solution, the
+    contact data), for inspection (the ContactResults-reporting role)."""
+    data, contact = sap.assemble(model, params, scene, q, v, tau, h, sap_params)
+    sol = sap.solve_sap(data, data.v_star, sap_params)
+    return advance_positions(model, params, q, sol.v, h), sol.v, sol, contact
+
+
+def contact_forces_continuous(model: MultibodyModel, params: MultibodyParams,
+                              scene: CollisionScene, q, v, dissipation_hc: float = 1.0,
+                              stiction_velocity: float = 1e-3):
+    """Compliant point-contact generalized forces for the continuous plant
+    (MultibodyPlant with time_step = 0, the point contact model): the
+    Hunt-Crossley normal force f = k x (1 + d xdot)+ and regularized
+    Coulomb friction, mapped by the contact Jacobian.  Returns tau_c
+    (..., nv) to add to the applied generalized forces."""
+    joints = kin.joint_transforms(model, params, q)
+    poses = kin.forward_kinematics(model, params, q, joints)
+    contact = scene.query(model, params, q, poses)
+    nc = contact.phi.shape[-1]
+    if nc == 0:
+        return q.new_zeros(q.shape[:-1] + (model.num_velocities,))
+    J = sap.make_contact_jacobian(model, params, q, contact, contact_frame(contact.n_W), joints,
+                                  poses)
+    vc = (J @ v[..., None, :, None]).squeeze(-1)  # (..., nc, 3) [vt1, vt2, vn]
+    zero = torch.zeros_like(contact.phi)
+    x = torch.maximum(-contact.phi, zero)  # penetration depth
+    xdot = -vc[..., 2]  # penetration rate (vn separates)
+    d = dissipation_hc * contact.dissipation
+    fn = contact.stiffness * x * torch.maximum(1.0 + d * xdot, zero)
+    vt = vc[..., :2]
+    slip = torch.sqrt(torch.sum(vt**2, dim=-1) + stiction_velocity**2)
+    ft = -contact.friction[..., None] * fn[..., None] * vt / slip[..., None]
+    f_c = torch.cat([ft, fn[..., None]], dim=-1)  # (..., nc, 3) in the contact frames
+    return torch.sum((J.mT @ f_c[..., None]).squeeze(-1), dim=-2)
+
+
+def make_continuous_contact_system(model: MultibodyModel, params: MultibodyParams,
+                                   scene: CollisionScene, actuated_joints=None,
+                                   dissipation_hc: float = 1.0,
+                                   stiction_velocity: float = 1e-3):
+    """The continuous plant with compliant point contact, xdot = f(params,
+    x, u) (the ContactModel-point continuous MultibodyPlant role)."""
+    from drake_tpu_torch.multibody.plant import make_system
+
+    def contact_tau(p, q, v, t):
+        return contact_forces_continuous(model, p, scene, q, v, dissipation_hc=dissipation_hc,
+                                         stiction_velocity=stiction_velocity)
+
+    return make_system(model, params, actuated_joints=actuated_joints,
+                       applied_forces=contact_tau)

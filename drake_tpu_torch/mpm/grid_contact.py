@@ -34,8 +34,11 @@ reference, by design:
   pairs' gradient there is ``_contact_grad``, the same expression as
   ``_contact_grad_hess``'s without the Hessian.
 - The stencil is one ``(..., n, 27)`` tensor of node indices and one of
-  weights: ``torch.gather`` interpolates, ``index_add_`` scatters into a
-  buffer of all lanes' nodes with one drop row for taps outside the grid.
+  weights: ``torch.gather`` interpolates, and a scatter sums into a buffer
+  of all lanes' nodes with one drop row for taps outside the grid, in a
+  fixed order planned once a stencil (``solver.scatter_sum``): two runs of
+  a solve are bit for bit the same on the card, where ``index_add_``
+  would sum with atomics in no fixed order.
 
 No gradient flows through the solve (nothing differentiates it in the
 reference either).  ``solve_log`` collects each solve's iterations,
@@ -179,6 +182,7 @@ class _Stencil(NamedTuple):
     weight: torch.Tensor  # (L, n, 27), zero on out-of-grid taps
     weight_sq: torch.Tensor  # (L, n, 27)
     nodes: int  # nodes of a lane's grid
+    plan: mpm.ScatterPlan  # the fixed order of scatters through drop_index
 
 
 def _stencil(config: mpm.MpmConfig, x) -> _Stencil:
@@ -199,8 +203,10 @@ def _stencil(config: mpm.MpmConfig, x) -> _Stencil:
     flat = (idx_c[..., 0] * ny + idx_c[..., 1]) * nz + idx_c[..., 2]  # (L, n, 27)
     lane = torch.arange(L, device=dev).reshape(L, 1, 1) * nodes
     drop = torch.where(valid, flat + lane, L * nodes)
-    return _Stencil(index=flat.reshape(L, n * 27), drop_index=drop.reshape(-1),
-                    weight=weight, weight_sq=weight**2, nodes=nodes)
+    drop = drop.reshape(-1)
+    return _Stencil(index=flat.reshape(L, n * 27), drop_index=drop, weight=weight,
+                    weight_sq=weight**2, nodes=nodes,
+                    plan=mpm.scatter_plan(drop, L * nodes + 1))
 
 
 def _gather(st: _Stencil, v):
@@ -217,8 +223,7 @@ def _scatter(st: _Stencil, weight, vals):
     L = vals.shape[0]
     c = vals.shape[-1]
     contrib = weight[..., None] * vals[..., None, :]  # (L, n, 27, c)
-    out = torch.zeros((L * st.nodes + 1, c), dtype=vals.dtype, device=vals.device)
-    out.index_add_(0, st.drop_index, contrib.reshape(-1, c))
+    out = mpm.scatter_sum(st.plan, contrib.reshape(-1, c))
     return out[:-1].reshape(L, st.nodes, c)
 
 

@@ -255,6 +255,33 @@ def fixed_corotated_stress(F, mu, lam):
 # ---------------------------------------------------------------------------
 
 
+class ScatterPlan(NamedTuple):
+    """A fixed summation order for a scatter-add into `size` rows: the
+    sources sorted stably by destination, and where each destination's run
+    starts.  ``index_add_`` on the card sums with atomics, in no fixed
+    order, so that two runs of the same program differ in the last bits;
+    ``scatter_sum`` sums each destination's sources one after another in
+    source order (on the CPU, ``index_add_``'s own order)."""
+
+    order: torch.Tensor  # (N,) stable argsort of the destinations
+    offsets: torch.Tensor  # (size + 1,) start of each destination's run in `order`
+
+
+def scatter_plan(index, size: int) -> ScatterPlan:
+    """The plan of a scatter of sources (N,) to the rows `index` (N,) of
+    [0, size), made once for every scatter through the same index."""
+    order = torch.argsort(index, stable=True)
+    rows = torch.arange(size + 1, dtype=index.dtype, device=index.device)
+    return ScatterPlan(order=order, offsets=torch.searchsorted(index[order], rows))
+
+
+def scatter_sum(plan: ScatterPlan, values):
+    """sum of values (N, ...) per destination: (size, ...), zero where
+    nothing lands; bit for bit the same in every run."""
+    return torch.segment_reduce(values[plan.order], "sum", offsets=plan.offsets, axis=0,
+                                unsafe=True)
+
+
 class GridState(NamedTuple):
     mass: torch.Tensor  # (nx, ny, nz), or (L, nx, ny, nz) over lanes
     momentum: torch.Tensor  # (nx, ny, nz, 3), or (L, nx, ny, nz, 3)
@@ -469,9 +496,9 @@ def particle_to_grid_blocked(config: MpmConfig, state: MpmState) -> GridState:
 
 
 def particle_to_grid_scatter(config: MpmConfig, state: MpmState) -> GridState:
-    """Direct scatter-add P2G (the oracle): ``index_add_`` of the 27-tap
-    stencil into a flat grid (each lane's after the one before) with one
-    extra bucket for out-of-domain taps."""
+    """Direct scatter-add P2G (the oracle): the 27-tap stencil summed into a
+    flat grid (each lane's after the one before) with one extra bucket for
+    out-of-domain taps, in a fixed order (``scatter_sum``)."""
     dx = config.dx
     dtype = state.x.dtype
     dev = state.x.device
@@ -504,13 +531,11 @@ def particle_to_grid_scatter(config: MpmConfig, state: MpmState) -> GridState:
     if off is not None:
         flat = flat + off
     flat = torch.where(in_bounds, flat, size - 1).reshape(-1)
-    grid_m = torch.zeros((size,), dtype=dtype, device=dev)
-    grid_m.index_add_(0, flat, m_scatter.reshape(-1))
-    grid_p = torch.zeros((size, 3), dtype=dtype, device=dev)
-    grid_p.index_add_(0, flat, mom.reshape(-1, 3))
+    grid = scatter_sum(scatter_plan(flat, size),
+                       torch.cat([m_scatter.reshape(-1, 1), mom.reshape(-1, 3)], dim=1))
     return GridState(
-        mass=grid_m[:-1].reshape(lanes + (nx, ny, nz)),
-        momentum=grid_p[:-1].reshape(lanes + (nx, ny, nz, 3)),
+        mass=grid[:-1, 0].reshape(lanes + (nx, ny, nz)),
+        momentum=grid[:-1, 1:].reshape(lanes + (nx, ny, nz, 3)),
         dropped=torch.zeros(lanes, dtype=torch.int32, device=dev),
     )
 

@@ -102,9 +102,10 @@ def _closure_stencil(config, x, live, ext) -> gc._Stencil:
         w[..., 0, offsets[:, 0]] * w[..., 1, offsets[:, 1]] * w[..., 2, offsets[:, 2]]
     ) * ok.to(x.dtype)
     lane = torch.arange(L, device=dev).reshape(L, 1, 1) * nodes
-    drop = torch.where(ok, node + lane, L * nodes)
-    return gc._Stencil(index=node.reshape(L, rows * 27), drop_index=drop.reshape(-1),
-                       weight=weight, weight_sq=weight**2, nodes=nodes)
+    drop = torch.where(ok, node + lane, L * nodes).reshape(-1)
+    return gc._Stencil(index=node.reshape(L, rows * 27), drop_index=drop, weight=weight,
+                       weight_sq=weight**2, nodes=nodes,
+                       plan=mpm.scatter_plan(drop, L * nodes + 1))
 
 
 def _contact_rows(params: GridContactParams, x, live, phi0, n_pg, v_g, active0):

@@ -1,20 +1,26 @@
-"""Carry a multibody model and its parameters across from the JAX package, so
-that both packages compute with identical parameters.
+"""Carry a multibody model and its parameters, and trajectories, across
+from the JAX package, so that both packages compute with identical data.
 
 The port never imports JAX: the caller hands over the JAX ``MultibodyParams``
 as numpy arrays (``{f.name: np.asarray(getattr(p, f.name)) for f in
-dataclasses.fields(p)}``) and the ``MultibodyModel`` as a dict of its fields
-(``dataclasses.asdict(model)``).
+dataclasses.fields(p)}``), the ``MultibodyModel`` as a dict of its fields
+(``dataclasses.asdict(model)``), and a trajectory as the dict of its fields,
+numpy arrays, with a nested dict for a trajectory field (PiecewisePose's
+position and orientation).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
+from drake_tpu_torch.math import trajectories
+
 from drake_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
+from drake_tpu_torch.utils.device import resolve_device
 from drake_tpu_torch.utils.struct import from_numpy, to_numpy
 
 
@@ -36,3 +42,41 @@ def model_from_fields(fields: Mapping) -> MultibodyModel:
     """MultibodyModel from ``dataclasses.asdict`` of a JAX ``MultibodyModel``
     (joint types the port does not carry raise)."""
     return MultibodyModel(**{k: tuple(v) for k, v in fields.items()})
+
+
+# The trajectory type of each field that holds a trajectory.
+_NESTED = {"position": "PiecewisePolynomial", "orientation": "PiecewiseQuaternionSlerp"}
+
+
+def trajectory_from_numpy(kind: str, fields: Mapping, device=None, dtype: torch.dtype = None):
+    """The port's trajectory `kind` ("PiecewisePolynomial",
+    "BsplineTrajectory", "BezierCurve", "PiecewiseQuaternionSlerp" or
+    "PiecewisePose") from the fields of the JAX one as numpy arrays (copied),
+    as `dtype` (default: keep the arrays') on `device` (None: the current
+    CUDA device, an error without one)."""
+    device = resolve_device(device)
+    cls = getattr(trajectories, kind)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        value = fields[f.name]
+        if isinstance(value, Mapping):
+            kwargs[f.name] = trajectory_from_numpy(_NESTED[f.name], value, device, dtype)
+        elif f.metadata.get("static", False):
+            kwargs[f.name] = int(value)
+        else:
+            kwargs[f.name] = torch.tensor(np.asarray(value), dtype=dtype, device=device)
+    return cls(**kwargs)
+
+
+def trajectory_to_numpy(traj) -> dict:
+    """The inverse of ``trajectory_from_numpy``: its fields as numpy arrays."""
+    out = {}
+    for f in dataclasses.fields(traj):
+        value = getattr(traj, f.name)
+        if dataclasses.is_dataclass(value):
+            out[f.name] = trajectory_to_numpy(value)
+        elif isinstance(value, torch.Tensor):
+            out[f.name] = value.detach().cpu().numpy()
+        else:
+            out[f.name] = value
+    return out

@@ -60,3 +60,20 @@ def _replayed(step, carry, num_steps):
     for _ in range(num_steps - 1):
         graph.replay()
     return buffers, stacks
+
+
+def capture(fn: Callable[[], None]) -> "torch.cuda.CUDAGraph":
+    """One CUDA graph of `fn()`, a function that reads and writes tensors of
+    its own (static buffers) on the card.  `fn` first runs once eagerly on a
+    side stream (it warms up workspaces and memoized constants, which a
+    capture may not copy from the host), so it must be harmless to run
+    twice.  Replay the graph with ``.replay()``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph

@@ -122,6 +122,19 @@ PORT_MODULES = (
     "drake_tpu_torch.solvers.branch_and_bound",
     "drake_tpu_torch.solvers.semidefinite_relaxation",
     "drake_tpu_torch.systems.optimization",
+    "drake_tpu_torch.math.trajectories",
+    "drake_tpu_torch.systems.primitives",
+    "drake_tpu_torch.systems.diagram",
+    "drake_tpu_torch.systems.comms",
+    "drake_tpu_torch.control.controllers",
+    "drake_tpu_torch.multibody.plant",
+    "drake_tpu_torch.contact.tamsi",
+    "drake_tpu_torch.contact.pgs",
+    "drake_tpu_torch.io",
+    "drake_tpu_torch.io.pubsub",
+    "drake_tpu_torch.examples.bouncing_ball",
+    "drake_tpu_torch.examples.rimless_wheel",
+    "drake_tpu_torch.examples.compass_gait",
 )
 
 
@@ -153,7 +166,9 @@ def test_collecting_port_tests_loads_no_torch():
         "test_torch_multibody, test_torch_contact, test_torch_mpc, test_torch_coupled, "
         "test_torch_mppi, test_torch_grid_contact, test_torch_cloth, test_torch_tiles, "
         "test_torch_tiles_contact, test_torch_systems, test_torch_quadrotor, test_torch_dircol, "
-        "test_torch_control, test_torch_acrobot, test_torch_solvers, test_torch_program"
+        "test_torch_control, test_torch_acrobot, test_torch_solvers, test_torch_program, "
+        "test_torch_trajectories, test_torch_hybrid, test_torch_primitives, "
+        "test_torch_continuous_contact, test_torch_bouncing_ball, test_torch_comms"
     )
     loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
     assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
@@ -400,7 +415,16 @@ def _nlp_entry_points():
     from drake_tpu_torch.examples import (acrobot_lqr_estimator, acrobot_spong,
                                           acrobot_spong_optimize, acrobot_swingup, cart_pole_lqr,
                                           pendulum_dircol)
+    from drake_tpu_torch.control import controllers
+    from drake_tpu_torch.examples import bouncing_ball, compass_gait, rimless_wheel
+    from drake_tpu_torch.io.pubsub import PubSub
+    from drake_tpu_torch.math import trajectories
     from drake_tpu_torch.models import acrobot, cart_pole, pendulum, quadrotor
+    from drake_tpu_torch.multibody import convert
+    from drake_tpu_torch.systems import comms, primitives
+    from drake_tpu_torch.utils.device import resolve_device
+
+    PP = trajectories.PiecewisePolynomial
 
     return {
         "quadrotor.default_params": lambda device: quadrotor.default_params(device=device).mass,
@@ -432,6 +456,37 @@ def _nlp_entry_points():
             device=device, scenarios=2, candidates=2, iters=1, steps=1)["best_gains"],
         "acrobot_lqr_estimator.run": lambda device: acrobot_lqr_estimator.run(
             device=device, steps=1)["xs"],
+        # The continuous-time and hybrid simulation slice.
+        "PiecewisePolynomial.first_order_hold": lambda device: PP.first_order_hold(
+            [0.0, 1.0], [[0.0], [1.0]], device=device).coeffs,
+        "BsplineTrajectory.make_clamped_uniform": lambda device: (
+            trajectories.BsplineTrajectory.make_clamped_uniform(np.eye(4), device=device).knots),
+        "PiecewisePose.make": lambda device: trajectories.PiecewisePose.make(
+            [0.0, 1.0], np.eye(2, 3), [[1.0, 0, 0, 0], [0, 1.0, 0, 0]],
+            device=device).orientation.quats,
+        "trajectory_from_numpy": lambda device: convert.trajectory_from_numpy(
+            "PiecewisePolynomial", {"breaks": np.arange(2.0), "coeffs": np.ones((1, 4, 1))},
+            device=device).coeffs,
+        "linear_system": lambda device: primitives.linear_system(
+            np.eye(2), np.ones((2, 1)), device=device).output(
+                None, torch.zeros(2, dtype=torch.float64, device=resolve_device(device)),
+                torch.zeros(1, dtype=torch.float64, device=resolve_device(device))),
+        "mlp_init": lambda device: primitives.mlp_init(torch.Generator().manual_seed(0), [2, 3],
+                                                       device=device).weights[0],
+        "random_source": lambda device: primitives.random_source(
+            torch.Generator().manual_seed(0), (2,), device=device),
+        "first_order_hold": lambda device: primitives.first_order_hold(
+            [0.0, 1.0], [[0.0], [1.0]], device=device)(0.5),
+        "pid_controller": lambda device: controllers.pid_controller(
+            [1.0], [1.0], [1.0], lambda s: (0.0, 0.0), 0.1, device=device)(
+                0.0, torch.zeros(2, dtype=torch.float64, device=resolve_device(device)), 0.0)[0],
+        "subscriber_input": lambda device: comms.subscriber_input(comms.SubscriberState(
+            PubSub("memq://entry"), "C", (1,)), device=device)()[0],
+        "bouncing_ball.run": lambda device: bouncing_ball.run(
+            device=device, dtype=torch.float64, steps=2, queries=3, verbose=False)["xs"],
+        "compass_gait.Walker": lambda device: compass_gait.Walker(device=device).masses,
+        "rimless_wheel.rollout": lambda device: rimless_wheel.rollout(
+            torch.ones((), device=resolve_device(device)), t_final=0.002)[0],
     }
 
 
@@ -441,15 +496,21 @@ NLP_ENTRY_POINTS = ["quadrotor.default_params", "pendulum.default_params",
                     "acrobot.params_from_numpy", "acrobot.make_system", "acrobot.upright_state",
                     "cart_pole.default_params", "cart_pole.params_from_numpy",
                     "cart_pole.make_system", "acrobot_swingup.build", "cart_pole_lqr.run",
-                    "acrobot_spong.run", "acrobot_spong_optimize.run", "acrobot_lqr_estimator.run"]
+                    "acrobot_spong.run", "acrobot_spong_optimize.run", "acrobot_lqr_estimator.run",
+                    "PiecewisePolynomial.first_order_hold",
+                    "BsplineTrajectory.make_clamped_uniform",
+                    "PiecewisePose.make", "trajectory_from_numpy", "linear_system", "mlp_init",
+                    "random_source", "first_order_hold", "pid_controller", "subscriber_input",
+                    "bouncing_ball.run", "compass_gait.Walker", "rimless_wheel.rollout"]
 
 
 @pytest.mark.parametrize("name", NLP_ENTRY_POINTS)
 def test_nlp_entry_points_default_to_the_card(name):
     """With no `device` the entry points of the quadrotor, the dircol, the
-    acrobot, the cart-pole and their examples place their tensors on the
-    current CUDA device, and raise without one; with ``"cpu"`` they stay on
-    the CPU."""
+    acrobot, the cart-pole and their examples, and of the continuous-time
+    and hybrid simulation slice (trajectories, primitives, controllers,
+    comms, the three demos), place their tensors on the current CUDA
+    device, and raise without one; with ``"cpu"`` they stay on the CPU."""
     import torch
 
     make = _nlp_entry_points()[name]

@@ -299,13 +299,4 @@ def test_simulate_discrete_matches_jax():
     ref = jax.vmap(lambda a, b: jsim.simulate_discrete(jd, jsys.default_params, a, b))(x, us)
     got = tsim.simulate_discrete(td, tsys.default_params, t(x), t(us))
     close(got, ref, TOL * max(1.0, float(np.abs(ref).max())))
-
-
-@pytest.mark.parametrize("name", ["simulate_adaptive", "simulate_hybrid", "WitnessFunction",
-                                  "dense_output"])
-def test_unported_simulator_parts_raise(name):
-    from drake_tpu_torch.systems import simulator as tsim
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 22"):
-        getattr(tsim, name)()
     assert tsim.SimulatorConfig().integration_scheme == "rk4"

@@ -2,7 +2,7 @@
 float32 against float64 of the implicit world on the tile pipeline, the
 port alone, on the CPU.
 
-    python tests/tiled_world_spread.py [--lanes 64] [--skip-rollout]
+    python tests/tiled_world_spread.py [--lanes 64] [--skip-rollout] [--dense]
 
 1. Phase 16a's quantities (``implicit_parity_values(..., tiled=True)``: 4
    lanes, one coupled step) in float32 against float64, as a share of the
@@ -13,6 +13,9 @@ port alone, on the CPU.
    |difference| in the particles' x and v, the paddle's position q and its
    velocity, the figures behind TILED_MAX_DIFF's velocity bounds.  Minutes
    at 64 lanes.
+3. With ``--dense``, phase 13c's floor instead: the same rollout on the
+   dense solve in float32 against float64, the figures behind
+   IMPLICIT_MAX_DIFF's velocity bounds (1. and 2. are skipped).
 """
 
 from __future__ import annotations
@@ -59,8 +62,18 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--lanes", type=int, default=cs.IMPLICIT_LANES[0])
     parser.add_argument("--skip-rollout", action="store_true")
+    parser.add_argument("--dense", action="store_true")
     args = parser.parse_args()
     cpu = torch.device("cpu")
+    if args.dense:
+        runs = {}
+        for name, dtype in (("dense float64", torch.float64), ("dense float32", torch.float32)):
+            t0 = time.perf_counter()
+            runs[name] = rollout(args.lanes, dtype, False)
+            print(f"{name}: {args.lanes} lanes in {time.perf_counter() - t0:.1f} s", flush=True)
+        print("13c, dense float32 against dense float64:",
+              differences(runs["dense float32"], runs["dense float64"]))
+        return 0
     ref, _ = cs.implicit_parity_values(torch, paddle_blob, gc, cpu, torch.float64, tiled=True)
     got, _ = cs.implicit_parity_values(torch, paddle_blob, gc, cpu, torch.float32, tiled=True)
     print("16a, float32 against float64 / scale:",
