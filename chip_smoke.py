@@ -259,7 +259,7 @@ continuous contact plant, TAMSI and PGS), which reaches none of K1-K3:
        seeded inputs of each module, within SYS_PARITY, the counts (steps,
        rejects, events, Newton iterations) equal or within
        SYS_PARITY_COUNTS;
-    b. the bouncing ball (15,000 rk4 steps and the dense output at 6,001
+    b. the bouncing ball (STEPS_BALL rk4 steps and the dense output at BALL_QUERIES
        times), the rimless wheel (20 s) and the compass gait (12 s), float32
        on the card at the reference's size and depth, each with its own
        checks and held to the JAX package's float32 readings
@@ -276,9 +276,36 @@ continuous contact plant, TAMSI and PGS), which reaches none of K1-K3:
     with ``--profile``, the ranges ``hybrid.macro``, ``hybrid.isolate``,
     ``adaptive.step``, ``tamsi.newton`` and ``pgs.sweep``.
 
-``python3 chip_smoke.py --opt-only [--profile]`` runs phase 20 alone, and
-``--systems-only [--profile]`` phase 21 alone; neither prints a result
-line.
+Then the full SAP discrete plant (the ball, planar, screw and universal
+joints, every primitive pair and hydro patch, SAP's limits, couplers,
+ball/distance/weld constraints, implicit PD and Hunt-Crossley models,
+force elements, loop topology) and Drake's rigid-contact demos, which
+reach none of K1-K3:
+
+22. a. card float64 against the port's CPU float64 on one SAP step of
+       each feature over RIGID_PARITY_LANES lanes, within RIGID_PARITY of
+       scale, Newton counts equal (or within the CPU's own spread under
+       RIGID_NUDGES); the cylinder's hydro patch runs, finite, but is not
+       compared (ROADMAP.md, Queue 3);
+    b. the ten demos at RIGID_DEPTHS, float32 on the card, a process each
+       (``--rigid-demo NAME``, the demo's ``smoke``), RIGID_WORKERS at a
+       time, started with phase 17 and run beside phases 17-22a: each
+       check the depth reaches, each final state within RIGID_FLOOR_FACTOR
+       times its float32 floor of the JAX package's CPU float32 reading
+       (tests/contact_reference.json), the seconds;
+    c. the allegro PD grasp over GRASP_LANES lanes in one call, alone:
+       lanes/s, peak memory; finite, every joint within its limit's slack,
+       every lane's grasp closed and caged, the first GRASP_CHECK_LANES
+       against the JAX package's float32 run;
+    d. with ``--profile``, ``sap.assemble`` and ``sap.newton`` per step of
+       22c.
+
+Phase 19 runs in a process of its own (``--acrobot-only``), started with
+phase 17 and run beside phases 17-22a, as 22b's demos: phases 17-22 time
+no kernel, and each of these paths is host-bound, so they share the card.
+``python3 chip_smoke.py --opt-only [--profile]`` runs phase 20 alone,
+``--systems-only [--profile]`` phase 21 alone and ``--contact-only
+[--profile]`` phase 22 alone; none prints a result line.
 
 The last two lines are a JSON object of per-kernel results (launches by
 path) and ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -459,10 +486,12 @@ TILED_TOP_LAYERS = ("tiles.substep", "coupled.sap_step")
 # time limit with phase 20.
 BAGGING_STEPS = 160
 BAGGING_CONTACT_STEP = 152
-# 14c: 10 steps with the kernels and with xla_only from 14b's state at step
-# 60 (before contact) and at step 160 (in contact).
+# 14c: 5 steps with the kernels and with xla_only from 14b's state at step
+# 60 (before contact) and at step 160 (in contact); cut from 10 to keep the
+# script within its time limit with phase 22 (its bounds, measured over 10
+# steps, stand).
 BAGGING_PATH_STARTS = (60, 160)
-BAGGING_PATH_STEPS = 10
+BAGGING_PATH_STEPS = 5
 # 14a: the ball at the demo's speed at contact, its centre at z = 0.405, so
 # that the sheet's 4 central vertices lie 3.6 mm inside it (with the centre
 # at 0.41, its lowest point on the sheet's plane, they lie 1.3 mm outside and
@@ -550,7 +579,10 @@ TILED_MAX_DIFF = {"x": 1e-4, "q": 1e-4, "v": 1e-3, "paddle v": 5e-4}
 # the RTI schedule).  It reaches none of K1-K3.
 QUAD_PARITY_BATCH = 8
 QUAD_BATCH = 4096  # BASELINE config 3's "4k batched scenarios", in one call
-QUAD_STEPS = 25
+# 17b: 15 of the bench's 25 MPC steps (0.3 s of its 0.5), cut to keep the
+# script within its time limit with phase 22; QUAD_JAX_PROGRESSING is the
+# JAX package's count at this depth.
+QUAD_STEPS = 15
 PROFILE_QUAD_STEPS = 2
 # Phase 17a bounds: 100x the same comparison between float32 and float64 on
 # a CPU (``quad_parity_values`` on the CPU in both types), which gave
@@ -566,7 +598,7 @@ QUAD_PARITY = {name: 100 * value for name, value in QUAD_PARITY_CPU.items()}
 # the goal below the initial one less 5 cm) at least the JAX package's CPU
 # float32 count on the same 4,096 initial states (the port's draws:
 # ``JAX_PLATFORMS=cpu python tests/nlp_mpc_reference.py --draws ...``, which
-# gave 4,093), less 1% of the lanes.
+# gave 4,093 at 25 steps and at QUAD_STEPS = 15), less 1% of the lanes.
 QUAD_JAX_PROGRESSING = 4093
 QUAD_PROGRESS_SLACK = 0.01
 QUAD_LAYERS = ("ilqr.linearize", "ilqr.riccati", "ilqr.forward", "mpc.plant_step")
@@ -574,6 +606,10 @@ QUAD_LAYERS = ("ilqr.linearize", "ilqr.riccati", "ilqr.forward", "mpc.plant_step
 # The pendulum dircol, BASELINE config 1 (phase 18;
 # drake_tpu_torch.examples.pendulum_dircol and benchmarks.bench_dircol_f32).
 # It reaches none of K1-K3.
+# 18b: the closed loop's CUDA graph against the eager loop over its first
+# 1,000 of 4,000 steps (through the swing's first half), cut from all of
+# them to keep the script within its time limit with phase 22.
+DIRCOL_GRAPH_CHECK_STEPS = 1000
 DIRCOL_PARITY = 1e-9  # 18a: card float64 against CPU float64, of the scale
 DIRCOL_BATCH = 32  # the float32 bench's batch, in one call
 # Phase 18c gate: the lanes feasible (violation < 1e-3) at least the
@@ -668,10 +704,8 @@ SYS_PARITY_COUNTS = {"adaptive steps": 1, "adaptive rejects": 1}
 # (``JAX_PLATFORMS=cpu python tests/systems_reference.py``).
 SYSTEMS_JAX_F32 = {
     "ball": {"apexes": [[0.40149998664855957, 0.15588220953941345],
-                        [0.6599999666213989, 0.10357201099395752],
-                        [0.8527499437332153, 0.08211714029312134],
-                        [1.0067499876022339, 0.0712779238820076]],
-             "n_apexes": 6, "ratio": 0.5059585668545757, "t_flight": 0.25849997997283936},
+                        [0.6599999666213989, 0.10357201099395752]],
+             "n_apexes": 2, "ratio": 0.5059585668545757, "t_flight": 0.25849997997283936},
     "wheel": {"strikes": 19, "w_meas": 1.0950673818588257},
     "wheel_lanes": {"seconds": 3.0, "strikes_sum": 2660, "strikes_min": 0, "strikes_max": 4,
                     # each lane's strikes, one digit a lane in lane order
@@ -695,7 +729,13 @@ SYSTEMS_JAX_F32 = {
                                              1.0909202098846436, 0.37053006887435913],
                 "d_last": 0.0064291199669241905},
 }
-STEPS_BALL = 15000
+# 21b's ball: 7,500 rk4 steps and the dense output at 3,001 times (the
+# first 0.75 s of the demo's 1.5 s: its first two rebound apexes, which its
+# checks read), cut from 15,000 and 6,001 to keep the script within its
+# time limit with phase 22; SYSTEMS_JAX_F32["ball"] is the JAX package's
+# reading at this depth.
+STEPS_BALL = 7500
+BALL_QUERIES = 3001
 # 21b's bounds against the JAX run.  The float32 bisection's dt / 2^24 lies
 # below t's ulp late in a 20 s run in both packages, so event times differ in
 # their last bits: the strikes within 1, the apex ratio and apex-to-apex
@@ -743,6 +783,52 @@ CONTACT_LANES = 1024
 CONTACT_CHECK_LANES = 64
 PGS_SWEEPS = 100
 CONTACT_PARITY = {"sap": 1e-4, "tamsi": 6e-3, "pgs gs": 4e-5, "pgs jacobi": 4e-5}
+
+# Phase 22, the discrete plant's constraints and the rigid-contact demos.
+# 22a: card float64 against the port's CPU float64 on one SAP step of each
+# feature, within RIGID_PARITY of each quantity's scale, over
+# RIGID_PARITY_LANES seeded lanes.
+RIGID_PARITY = 1e-9
+RIGID_PARITY_LANES = 4
+# 22a's solves run to a tight tolerance: at the default 1e-6 a lane whose
+# residual ends near the tolerance takes one more or fewer iterations under
+# the other device's rounding, and its velocity moves within 1e-6 (seen on
+# the card: 1.6e-7).  The Newton count itself follows the last bit (a SAP
+# lane at a line-search tie, ROADMAP.md): a lane's card count must equal
+# the CPU's, or sit within the spread that nudging every input by each of
+# RIGID_NUDGES (relative) gives on the CPU in the same run.
+RIGID_SAP = dict(rel_tolerance=1e-10, max_iterations=60)
+RIGID_NUDGES = (1e-15, -1e-15, 1e-14, -1e-14)
+# 22b: each demo at a depth that covers its defining event (the full depths
+# run apart, PERF.md): rod2d past its impact (~step 434 of 5e-4 s), the
+# rolling sphere settled and past its slide-to-roll (~step 58), the humanoid
+# past its first touch (~step 235), the allegro hand's load to its stops
+# and the grasp closed on the ball (~step 300), the gripper through its
+# first 0.25 s of shaking (its slide read from step 200, as the
+# reference's), the four-bar and the strandbeest through part of a crank
+# turn, the planar gripper through its press, the spatula through its
+# first twist, the suspension whole (rk4 in a CUDA graph).  Each demo's
+# ``smoke(depth, ...)`` returns its final states and the checks this depth
+# reaches.  The demos run in processes of their own, RIGID_WORKERS at a
+# time in the order listed (the longest first), beside phases 17-21.
+RIGID_DEPTHS = {"simple_gripper": 250, "strandbeest": 0.2, "atlas_drop": 280,
+                "spatula_slip_control": 120, "allegro_hand": [200, 300],
+                "bushing_suspension": 4000, "four_bar": 0.25, "rolling_sphere": [30, 100],
+                "rod2d": 500, "planar_gripper": 200}
+RIGID_WORKERS = 4
+# A reading's bound: this many times its float32 floor (the JAX package's
+# |float32 - float64| on the CPU, tests/contact_reference.py), at least the
+# minimum.
+RIGID_FLOOR_FACTOR = 10.0
+RIGID_MIN_BOUND = 1e-5
+RIGID_REFERENCE = "tests/contact_reference.json"
+# 22c: the allegro PD grasp over 1,024 lanes in one call (config 4's batch),
+# through the fingers' closing on the ball, timed alone after 22b.
+GRASP_LANES = 1024
+GRASP_LANE_STEPS = 300
+GRASP_CHECK_LANES = 64
+RIGID_PROFILE_STEPS = 3
+RIGID_LAYERS = ("sap.assemble", "sap.newton")
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -2477,10 +2563,11 @@ def dircol_main_path(torch, pendulum_dircol, dircol, sqp, mk, dev, card):
     check(end_err <= 1e-6, f"dircol: end knots off by {end_err:.3e}")
     check(out["err"] < 1e-3, f"dircol closed loop: final error {out['err']:.3e}")
     with torch.enable_grad():  # autograd on: utils.scan runs the eager loop
-        eager = pendulum_dircol.track(system, sol, x0[None])
-    diff = max(float((g - e).abs().max()) for g, e in zip(out["xs"], eager[0]))
-    print(f"[dircol swing-up (phase 18b)] the closed loop, CUDA graph against eager: max "
-          f"|difference| in x {diff!r} (== 0)")
+        eager = pendulum_dircol.track(system, sol, x0[None], DIRCOL_GRAPH_CHECK_STEPS)
+    diff = max(float((g[: DIRCOL_GRAPH_CHECK_STEPS + 1] - e).abs().max())
+               for g, e in zip(out["xs"], eager[0]))
+    print(f"[dircol swing-up (phase 18b)] the closed loop's first {DIRCOL_GRAPH_CHECK_STEPS} "
+          f"steps, CUDA graph against eager: max |difference| in x {diff!r} (== 0)")
     check(diff == 0.0, f"dircol: the graphed closed loop is {diff!r} off the eager one")
     return launches
 
@@ -3175,6 +3262,25 @@ def opt_profile(torch, sc, inputs, programs, dev, card):
         profile_layers(torch, run, 1, layers, layers, tag, "solve", card)
 
 
+def acrobot_phase(torch, mk, dev, card, profile):
+    """Phase 19 (19a-19c, and 19d with `profile`): config 2 and the LQR
+    family; returns the kernels' launches by path."""
+    from drake_tpu_torch.control import lqr
+    from drake_tpu_torch.examples import (acrobot_lqr_estimator, acrobot_spong,
+                                          acrobot_spong_optimize, acrobot_swingup, cart_pole_lqr)
+    from drake_tpu_torch.trajopt import ilqr
+
+    lqr_parity(torch, dev, card)
+    by_path = {}
+    by_path["acrobot swing-up float64 (phase 19b)"], swingup = swingup_phase(
+        torch, acrobot_swingup, mk, dev, card)
+    by_path.update(family_phase(torch, (cart_pole_lqr, acrobot_spong, acrobot_lqr_estimator,
+                                        acrobot_spong_optimize), mk, dev, card))
+    if profile:
+        swingup_profile(torch, acrobot_swingup, ilqr, lqr, swingup, dev, card)
+    return by_path
+
+
 def opt_phase(torch, mk, dev, card, profile):
     """Phase 20, 20a-20c (and 20d with `profile`); returns the kernels'
     launches in it (none: no kernel lies on this path)."""
@@ -3428,7 +3534,8 @@ def systems_demos(torch, dev, card):
     m = systems_mods()
     ref = SYSTEMS_JAX_F32
     seconds = {}
-    ball = m.bouncing_ball.run(device=dev, dtype=torch.float32)
+    ball = m.bouncing_ball.run(device=dev, dtype=torch.float32, steps=STEPS_BALL,
+                               queries=BALL_QUERIES)
     seconds["bouncing_ball"] = ball["seconds"]
     check(ball["ok"], "the bouncing ball failed its checks")
     d_ratio = abs(ball["ratio"] - ref["ball"]["ratio"])
@@ -3783,6 +3890,508 @@ def systems_phase(torch, mk, dev, card, profile):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the discrete plant's constraints and the rigid-contact demos.
+# ---------------------------------------------------------------------------
+
+# Shape kinds of 22a's pairs: (class name, fields, size for the poses).
+RIGID_SHAPES = {
+    "sphere": ("Sphere", dict(radius=0.1), 0.1),
+    "box": ("Box", dict(size=(0.3, 0.2, 0.1)), 0.19),
+    "capsule": ("Capsule", dict(radius=0.05, length=0.3), 0.2),
+    "cylinder": ("Cylinder", dict(radius=0.08, length=0.2), 0.13),
+    "ellipsoid": ("Ellipsoid", dict(radii=(0.12, 0.08, 0.06)), 0.1),
+    "halfspace": ("HalfSpace", dict(), 0.0),
+}
+# Every primitive pair of the scene's table, and hydro patches (modulus,
+# rings) on each kind of carrier.
+RIGID_PAIRS = [(a, b, None) for a, b in (
+    ("sphere", "halfspace"), ("sphere", "sphere"), ("sphere", "box"), ("capsule", "halfspace"),
+    ("capsule", "sphere"), ("capsule", "capsule"), ("box", "halfspace"), ("box", "box"),
+    ("capsule", "box"), ("sphere", "cylinder"), ("capsule", "cylinder"), ("box", "cylinder"),
+    ("cylinder", "halfspace"), ("cylinder", "cylinder"), ("sphere", "ellipsoid"),
+    ("capsule", "ellipsoid"), ("box", "ellipsoid"), ("ellipsoid", "halfspace"))] + [
+    ("sphere", "halfspace", (2e5, 3)), ("box", "box", (1e6, 1)), ("capsule", "halfspace", (5e5, 2)),
+    ("cylinder", "halfspace", (3e5, 2)), ("ellipsoid", "sphere", (3e5, 1))]
+
+
+def rigid_mods():
+    from drake_tpu_torch.contact import plant as cplant
+    from drake_tpu_torch.contact import sap
+    from drake_tpu_torch.geometry import shapes as sh
+    from drake_tpu_torch.geometry.scene import CollisionGeometry, CollisionScene
+    from drake_tpu_torch.multibody import dynamics as dyn
+    from drake_tpu_torch.multibody import force_elements as fel
+    from drake_tpu_torch.multibody import kinematics as kin
+    from drake_tpu_torch.multibody import topology as topo
+    from drake_tpu_torch.multibody.model import ModelBuilder
+
+    return types.SimpleNamespace(**{k: v for k, v in locals().items()})
+
+
+def pair_world(m, torch, pair, device):
+    """Two geometries of `pair` on floating bodies (a halfspace on the world)."""
+    a, b, hydro = pair
+    builder = m.ModelBuilder()
+    geoms = []
+    for name, kind in (("A", a), ("B", b)):
+        cls, fields, _ = RIGID_SHAPES[kind]
+        body = -1 if kind == "halfspace" else builder.add_body(
+            name, parent=None, joint_type="floating", mass=1.0, inertia_com=np.eye(3) * 0.01)
+        extra = {} if hydro is None or name == "B" else dict(hydroelastic_modulus=hydro[0],
+                                                             hydro_rings=hydro[1])
+        geoms.append(m.CollisionGeometry(name=name, body=body, shape=getattr(m.sh, cls)(**fields),
+                                         stiffness=1e5 if name == "A" else 4e5,
+                                         friction=0.6 if name == "A" else 0.9, **extra))
+    model, params = builder.build(torch.float64, device)
+    return model, params, m.CollisionScene.build(geoms)
+
+
+def pair_lanes(pair, model, lanes, seed):
+    """(q, v) float64 numpy: random orientations, the first body about the
+    second at 0.6-1.1 times the sum of their sizes (two boxes 0.3-0.8)."""
+    a, b, _ = pair
+    rng = np.random.default_rng(seed)
+    q = np.zeros((lanes, model.num_positions))
+    floating = [k for k in (a, b) if k != "halfspace"]
+    for j in range(len(floating)):
+        quat = rng.standard_normal((lanes, 4))
+        q[:, 7 * j : 7 * j + 4] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    size = {k: RIGID_SHAPES[k][2] for k in (a, b)}
+    if len(floating) == 2:
+        u = rng.standard_normal((lanes, 3))
+        lo, hi = (0.3, 0.8) if a == b == "box" else (0.6, 1.1)
+        q[:, 4:7] = u / np.linalg.norm(u, axis=1, keepdims=True) * (
+            (size[a] + size[b]) * rng.uniform(lo, hi, (lanes, 1)))
+    else:
+        q[:, 4:6] = rng.uniform(-0.2, 0.2, (lanes, 2))
+        q[:, 6] = size[floating[0]] * rng.uniform(0.4, 1.1, lanes)
+    return q, 0.3 * rng.standard_normal((lanes, model.num_velocities))
+
+
+def arm_world(m, torch, device):
+    """The constraint world of tests/test_torch_sap_constraints.py: a
+    revolute-revolute-prismatic arm with a pad and a free ball over the
+    ground."""
+    ey = np.eye(3)
+    b = m.ModelBuilder()
+    b.add_body("l1", parent=None, joint_type="revolute", mass=1.0, com=(0, 0, -0.15),
+               inertia_com=ey * 0.01, axis=(0, 1, 0), X_PJ_xyz=(0, 0, 0.6), joint_name="j1",
+               damping=0.2)
+    b.add_body("l2", parent="l1", joint_type="revolute", mass=0.8, com=(0, 0, -0.15),
+               inertia_com=ey * 0.008, axis=(0, 1, 0), X_PJ_xyz=(0, 0, -0.3), joint_name="j2")
+    b.add_body("l3", parent="l2", joint_type="prismatic", mass=0.3, inertia_com=ey * 1e-3,
+               axis=(0, 0, -1), X_PJ_xyz=(0, 0, -0.25), joint_name="j3", damping=0.5)
+    b.add_body("ball", parent=None, joint_type="floating", mass=0.5, inertia_com=ey * 2e-3)
+    model, params = b.build(torch.float64, device)
+    geoms = [m.CollisionGeometry("pad", 2, m.sh.Sphere(0.04), p_BG=np.array([0.0, 0.0, -0.1]),
+                                 stiffness=2e4, dissipation=0.1, friction=0.8),
+             m.CollisionGeometry("ball", 3, m.sh.Sphere(0.05), stiffness=1e4, dissipation=0.2,
+                                 friction=0.5),
+             m.CollisionGeometry("ground", -1, m.sh.HalfSpace(), stiffness=1e8, dissipation=0.05,
+                                 friction=0.7)]
+    return model, params, m.CollisionScene.build(geoms)
+
+
+def arm_lanes(lanes, seed=0):
+    rng = np.random.default_rng(seed)
+    q = np.zeros((lanes, 10))
+    q[:, 0] = rng.uniform(-0.5, 0.6, lanes)
+    q[:, 1] = rng.uniform(-0.7, 0.8, lanes)
+    q[:, 2] = rng.uniform(-0.07, 0.1, lanes)
+    quat = np.array([1.0, 0, 0, 0]) + 0.3 * rng.standard_normal((lanes, 4))
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 7:9] = rng.uniform(0.3, 0.9, (lanes, 2)) * [1, 0.1]
+    q[:, 9] = 0.05 + rng.uniform(-0.004, 0.003, lanes)
+    v = 0.5 * rng.standard_normal((lanes, 9))
+    tau = np.concatenate([3.0 * rng.standard_normal((lanes, 3)), np.zeros((lanes, 6))], axis=1)
+    return q, v, tau, rng.uniform(-0.5, 0.5, (lanes, 2))
+
+
+ARM_LIMITS = ([-0.4, -0.6, -0.05, 0, 0, 0, 0, 0, 0], [0.5, 0.7, 0.08, 0, 0, 0, 0, 0, 0])
+ARM_CASES = {
+    "limits": ("cone", dict(joint_limits=ARM_LIMITS)),
+    "coupler": ("cone", dict(couplers=[("j1", "j2", -0.5, 0.1)])),
+    "ball": ("cone", dict(ball_constraints=[(2, (0.0, 0.0, -0.1), -1, (0.45, 0.0, 0.3))])),
+    "distance": ("cone", dict(distance_constraints=[(3, (0.0, 0.0, 0.0), 1, (0.1, 0.0, 0.0),
+                                                     0.6)])),
+    "weld": ("cone", dict(weld_constraints=[(3, np.eye(3), (0.0, 0.0, 0.0), -1, np.eye(3),
+                                             (0.8, 0.0, 0.06))])),
+    "pd": ("cone", dict(pd_controllers=True)),
+    "hc_lagged": ("hc_lagged", {}),
+    "hc_similar": ("hc_similar", {}),
+}
+
+
+def joints_world(m, torch, device):
+    """Every joint type (tests/test_torch_joints.py's model) with a sphere
+    pad on the prismatic tip and the screw body over the ground."""
+    ey = np.eye(3)
+    b = m.ModelBuilder()
+    b.add_body("a", parent=None, joint_type="revolute", mass=1.0, com=(0.1, 0, 0),
+               inertia_com=ey * 0.02, axis=(0, 0, 1), damping=0.1, X_PJ_xyz=(0, 0, 0.6))
+    b.add_body("b", parent="a", joint_type="ball", mass=0.7, com=(0, 0.05, -0.1),
+               inertia_com=np.diag([0.01, 0.02, 0.015]), X_PJ_xyz=(0.3, 0, 0),
+               X_PJ_rpy=(0.1, -0.2, 0.3), damping=0.05)
+    b.add_body("u", parent="b", joint_type="universal", mass=0.4, com=(0, 0, -0.1),
+               inertia_com=ey * 0.004, axis=(1, 0, 0), axis2=(0, 1, 0), X_PJ_xyz=(0, 0, -0.25),
+               damping=0.02, rotor_inertia=1e-4, gear_ratio=30.0)
+    b.add_body("e", parent="u", joint_type="prismatic", mass=0.2, inertia_com=ey * 1e-3,
+               axis=(0, 0, 1), X_PJ_xyz=(0, 0, -0.2))
+    b.add_body("p", parent=None, joint_type="planar", mass=1.5, com=(0.02, 0, 0.01),
+               inertia_com=np.diag([0.03, 0.02, 0.04]), X_PJ_xyz=(1.0, 0, 0.12))
+    b.add_body("s", parent="p", joint_type="screw", mass=0.3, inertia_com=ey * 2e-3,
+               axis=(0, 0.6, 0.8), screw_pitch=0.1, X_PJ_xyz=(0, 0.1, 0))
+    model, params = b.build(torch.float64, device)
+    geoms = [m.CollisionGeometry("tip", model.body_index("e"), m.sh.Sphere(0.05)),
+             m.CollisionGeometry("s", model.body_index("s"), m.sh.Sphere(0.1)),
+             m.CollisionGeometry("ground", -1, m.sh.HalfSpace(), stiffness=1e8)]
+    return model, params, m.CollisionScene.build(geoms)
+
+
+def rigid_parity_values(torch, device, nudge=0.0):
+    """Phase 22a's quantities, float64 on `device`: (values {name: numpy},
+    counts {name: numpy of Newton iterations})."""
+    m = rigid_mods()
+    lanes = RIGID_PARITY_LANES
+    values, counts = {}, {}
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x) * (1.0 + nudge), dtype=torch.float64, device=device)
+
+    def step(name, model, params, scene, q, v, tau, sp=None, **opts):
+        sp = sp or m.sap.SapParameters(**RIGID_SAP)
+        data, contact = m.sap.assemble(model, params, scene, t(q), t(v), t(tau), 0.01, sp, **opts)
+        sol = m.sap.solve_sap(data, data.v_star, sp)
+        q_next = m.cplant.advance_positions(model, params, t(q), sol.v, 0.01)
+        values[f"{name} v"] = sol.v.cpu().numpy()
+        values[f"{name} q"] = q_next.cpu().numpy()
+        if contact.phi.shape[-1]:
+            values[f"{name} phi"] = contact.phi.cpu().numpy()
+        counts[name] = sol.iterations.cpu().numpy()
+
+    model, params, scene = joints_world(m, torch, device)
+    rng = np.random.default_rng(11)
+    q = rng.uniform(-1.0, 1.0, (lanes, model.num_positions))
+    o = model.q_offsets[model.body_index("b")]
+    quat = rng.standard_normal((lanes, 4))
+    q[:, o : o + 4] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    v = rng.standard_normal((lanes, model.num_velocities))
+    step("joints", model, params, scene, q, v, rng.standard_normal(v.shape))
+    values["joints M"] = m.dyn.mass_matrix(model, params, t(q)).cpu().numpy()
+    values["joints p_WB"] = m.kin.forward_kinematics(model, params, t(q))[1].cpu().numpy()
+
+    for seed, pair in enumerate(RIGID_PAIRS):
+        model, params, scene = pair_world(m, torch, pair, device)
+        q, v = pair_lanes(pair, model, lanes, seed)
+        name = ("hydro " if pair[2] else "") + f"{pair[0]}-{pair[1]}"
+        step(name, model, params, scene, q, v, np.zeros_like(v))
+
+    model, params, scene = arm_world(m, torch, device)
+    q, v, tau, qd = arm_lanes(lanes)
+    for case, (contact_model, opts) in ARM_CASES.items():
+        opts = dict(opts)
+        if opts.pop("pd_controllers", False):
+            zero = t(np.zeros_like(qd))
+            opts["pd_controllers"] = ((("j1", 40.0, 2.0, 3.0), ("j2", 25.0, 1.0, 0.5)), t(qd),
+                                      zero, zero)
+        step(case, model, params, scene, q, v, tau,
+             m.sap.SapParameters(contact_model=contact_model, **RIGID_SAP), **opts)
+
+    model = m.ModelBuilder()
+    model.add_body("anchor", parent=None, joint_type="weld", mass=0.0)
+    model.add_body("block", parent="anchor", joint_type="floating", mass=2.0,
+                   inertia_com=np.diag([0.02, 0.03, 0.04]))
+    model, params = model.build(torch.float64, device)
+    feb = m.fel.ForceElementBuilder(model)
+    feb.add_bushing("anchor", "block", X_AF_xyz=(0.0, 0.0, 0.5), X_AF_rpy=(0.1, 0.0, -0.2),
+                    torque_stiffness=(6.0, 6.0, 4.0), torque_damping=(0.5, 0.5, 0.3),
+                    force_stiffness=(300.0, 300.0, 250.0), force_damping=(8.0, 8.0, 6.0))
+    feb.add_linear_spring_damper("anchor", (0.4, 0.0, 0.5), "block", (0.1, 0.0, 0.0),
+                                 free_length=0.3, stiffness=80.0, damping=2.0)
+    fe, fp = feb.build(torch.float64, device)
+    q = np.zeros((lanes, 7))
+    quat = np.array([1.0, 0, 0, 0]) + 0.3 * rng.standard_normal((lanes, 4))
+    q[:, :4] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 4:7] = [0.1, -0.05, 0.35] + 0.1 * rng.standard_normal((lanes, 3))
+    v = rng.standard_normal((lanes, 6))
+    values["force elements tau"] = m.fel.generalized_forces(model, params, fe, fp, t(q),
+                                                            t(v)).cpu().numpy()
+
+    g = m.topo.LinkGraph()
+    rod = lambda L: np.diag([L**2 / 12, L**2 / 12, 1e-3])  # noqa: E731
+    for name, com, L in (("crank", (0, 0, -0.5), 1.0), ("coupler", (1.0, 0, 0), 2.0),
+                         ("rocker", (0, 0, 0.5), 1.0)):
+        g.add_link(name, mass=1.0, com=com, inertia_com=rod(L))
+    g.add_joint("ground_crank", parent=m.topo.WORLD, child="crank", axis=(0, 1, 0))
+    g.add_joint("crank_coupler", parent="crank", child="coupler", axis=(0, 1, 0),
+                p_PJ=(0, 0, -1.0))
+    g.add_joint("coupler_rocker", parent="coupler", child="rocker", axis=(0, 1, 0),
+                p_PJ=(2.0, 0, 0))
+    g.add_joint("rocker_ground", parent="rocker", child=m.topo.WORLD, axis=(0, 1, 0),
+                p_PJ=(0, 0, 1.0), p_CJ=(2.0, 0, 0))
+    model, params, balls, _ = g.build(torch.float64, device)
+    q0, _ = m.topo.assemble(model, params, balls, t([0.3, -0.25, 0.2]))
+    values["topology assemble"] = q0.cpu().numpy()
+    return values, counts
+
+
+def rigid_parity(torch, dev, card):
+    """22a: card float64 against the port's CPU float64, within
+    RIGID_PARITY of each quantity's scale; Newton iteration counts equal, or
+    within the CPU's own spread under RIGID_NUDGES."""
+    ref, ref_c = rigid_parity_values(torch, "cpu")
+    got, got_c = rigid_parity_values(torch, dev)
+    spread = {name: np.zeros_like(c) for name, c in ref_c.items()}
+    for nudge in RIGID_NUDGES:
+        nudged = rigid_parity_values(torch, "cpu", nudge)[1]
+        for name, c in nudged.items():
+            spread[name] = np.maximum(spread[name], np.abs(c - ref_c[name]))
+    # The cylinder's patch is not comparable across devices: its points are
+    # Newton projections onto the surface, where the reference's cylinder
+    # normal vanishes for a point 1e-17 outside (ROADMAP.md, Queue 3), so a
+    # 1e-15 change of the pose moves them.  It runs, finite, all the same.
+    apart = [name for name in ref if name.startswith("hydro cylinder")]
+    for name in apart:
+        check(np.isfinite(got.pop(name)).all(), f"rigid parity: {name} not finite")
+        ref.pop(name)
+    ref_c = {k: v for k, v in ref_c.items() if not k.startswith("hydro cylinder")}
+    errs = parity_errors(ref, got)
+    worst = max(errs, key=errs.get)
+    bad = {name: e for name, e in errs.items() if not e <= RIGID_PARITY}
+    bad_c = {name: (got_c[name].tolist(), r.tolist()) for name, r in ref_c.items()
+             if np.any(np.abs(got_c[name] - r) > spread[name])}
+    for name, e in bad.items():
+        print(f"[rigid parity] {name}: {e:.3e} of scale over {RIGID_PARITY:.0e} FAIL")
+    for name, (g, r) in bad_c.items():
+        print(f"[rigid parity] {name}: iterations {g} on the card, {r} on the CPU, nudged "
+              f"spread {spread[name].tolist()} FAIL")
+    check(not bad and not bad_c, f"rigid parity: {sorted(bad) + sorted(bad_c)}")
+    print(f"[rigid parity] {', '.join(apart)}: finite on the card, not compared (the "
+          f"reference's cylinder normal, ROADMAP.md Queue 3)")
+    total = sum(int(c.sum()) for c in ref_c.values())
+    lanes = sum(c.size for c in ref_c.values())
+    equal = sum(int((got_c[name] == r).sum()) for name, r in ref_c.items())
+    moved = sum(int((spread[name] > 0).sum()) for name in ref_c)
+    max_d = max(int(np.abs(got_c[name] - r).max()) for name, r in ref_c.items())
+    print(f"[rigid parity] {len(errs)} quantities of {len(ref_c)} SAP steps x "
+          f"{RIGID_PARITY_LANES} lanes (each joint type, {len(RIGID_PAIRS)} pairs and patches, "
+          f"limits, a coupler, ball, distance and weld constraints, PD, both HC models, force "
+          f"elements, a topology assemble): card float64 against CPU float64, worst {worst} "
+          f"{errs[worst]:.3e} of scale (<= {RIGID_PARITY:.0e}); Newton iterations equal in {equal} "
+          f"of {lanes} lane solves ({total} on the CPU), the others within the CPU's own "
+          f"spread under nudges of {RIGID_NUDGES} (which move {moved} lane counts; max "
+          f"|card - CPU| {max_d}) [{card}]")
+
+
+def rigid_demo(name, device, torch):
+    """22b's worker: demo `name` at its depth, float32 on `device`: its
+    final states (lists), the checks the depth reaches, and its seconds."""
+    import importlib
+
+    demo = importlib.import_module(f"drake_tpu_torch.examples.{name}")
+    start = time.perf_counter()
+    states, checks = demo.smoke(RIGID_DEPTHS[name], device, torch.float32)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"states": {k: v.double().cpu().numpy().tolist() for k, v in states.items()},
+            "checks": {k: bool(ok) for k, ok in checks.items()},
+            "finite": all(bool(torch.isfinite(v).all()) for v in states.values()),
+            "seconds": time.perf_counter() - start}
+
+
+def in_background(args, workers=1):
+    """Runs ``chip_smoke.py ARGS`` for each entry of `args` ({key: ARGS})
+    in processes of their own, `workers` at a time in that order, from
+    threads that wait on them (the output is read as it comes, so no pipe
+    fills): ({key: a future of the CompletedProcess}, the host clock at
+    the start)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(workers)
+    jobs = {key: pool.submit(subprocess.run, [sys.executable, __file__, *a],
+                             capture_output=True, text=True, timeout=1000)
+            for key, a in args.items()}
+    pool.shutdown(wait=False)
+    return jobs, time.perf_counter()
+
+
+def background_output(job, what):
+    """The last line of a background process's output as JSON, after
+    printing the lines before it; fails if the process failed."""
+    proc = job.result()
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    return json.loads(lines[-1])
+
+
+def rigid_demos_start():
+    """22b's processes: one a demo, RIGID_WORKERS at a time."""
+    return in_background({name: ("--rigid-demo", name) for name in RIGID_DEPTHS}, RIGID_WORKERS)
+
+
+def rigid_demos(workers, card):
+    """22b: the demos at RIGID_DEPTHS, float32 on the card, a process each
+    (started by rigid_demos_start); each final state within
+    RIGID_FLOOR_FACTOR times the JAX package's float32 floor of the JAX
+    package's float32 CPU reading at the same step, each check the depth
+    reaches passed.  Returns each demo's seconds."""
+    jobs, start = workers
+    ref = json.loads((pathlib.Path(__file__).parent / RIGID_REFERENCE).read_text())
+    check(ref["depths"] == RIGID_DEPTHS, "tests/contact_reference.json is of other depths")
+    results = {name: background_output(job, f"22b's {name}") for name, job in jobs.items()}
+    wall = time.perf_counter() - start
+    for name, r in results.items():
+        check(r["finite"], f"{name}: a state is not finite")
+        failed = [k for k, ok in r["checks"].items() if not ok]
+        check(not failed, f"{name}: failed its checks {failed} at depth {RIGID_DEPTHS[name]}")
+        lines = []
+        for run, want in ref["demos"][name].items():
+            bound = max(RIGID_FLOOR_FACTOR * want["floor"], RIGID_MIN_BOUND)
+            d = float(np.max(np.abs(np.asarray(r["states"][run]) - np.asarray(want["f32"]))))
+            lines.append(f"{run} {d:.3e} (<= {bound:.3e})")
+            check(d <= bound, f"{name} {run}: {d:.3e} off the JAX package's float32 reading")
+        print(f"[rigid demos] {name} at depth {RIGID_DEPTHS[name]}: checks "
+              f"{json.dumps(r['checks'])}; max |card - JAX CPU float32| {'; '.join(lines)}; "
+              f"{r['seconds']!r} s [{card}]")
+    print(f"[rigid demos] {len(results)} demos in {wall!r} s of wall, {RIGID_WORKERS} processes "
+          f"at a time [{card}]")
+    return {name: r["seconds"] for name, r in results.items()}
+
+
+def grasp_targets(torch, lanes, dev):
+    """22c's targets (lanes, 12): the demo's plus 0.05 N(0, 1) from a
+    torch.Generator seeded 0, drawn on the CPU in float32."""
+    from drake_tpu_torch.examples import allegro_hand
+
+    g = torch.Generator().manual_seed(0)
+    base = torch.tensor(np.tile(allegro_hand.TARGETS, allegro_hand.N_FINGERS),
+                        dtype=torch.float32)
+    return (base + 0.05 * torch.randn((lanes, base.shape[0]), generator=g)).to(dev)
+
+
+def grasp_phase(torch, dev, card):
+    """22c: the allegro PD grasp at GRASP_LANES lanes in one call, timed:
+    lanes/s, peak memory; every lane finite, every joint within its limits
+    by the SAP limit's slack, every lane's grasp closed and caged, the
+    first GRASP_CHECK_LANES lanes against the JAX package's float32 CPU
+    run.  Returns (the final states, the targets)."""
+    from drake_tpu_torch.contact import sap
+    from drake_tpu_torch.examples import allegro_hand
+
+    ref = json.loads((pathlib.Path(__file__).parent / RIGID_REFERENCE).read_text())["grasp_lanes"]
+    check(ref["steps"] == GRASP_LANE_STEPS, "tests/contact_reference.json: other grasp depth")
+    targets = grasp_targets(torch, GRASP_LANES, dev)
+    allegro_hand.grasp_lanes(targets[:2], 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    x, _ = allegro_hand.grasp_lanes(targets, GRASP_LANE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n = allegro_hand.N_FINGERS * allegro_hand.N_JOINTS
+    finite = bool(torch.isfinite(x).all())
+    check(finite, "22c: a lane is not finite")
+    # The limits are compliant: at rest a limit row's impulse gamma balances
+    # at most the servo's effort limit plus gravity over a step, and its
+    # regularization lets the joint sit past the stop by h R gamma <= h^2 R
+    # (e_lim + 1 N m) at most; R from the assembled limit rows at the final
+    # state.  The targets sit 0.5 rad inside the stops, so this gate fails
+    # only if a servo overshoots that far; the grasp's own checks (closed,
+    # caged) are the ones this depth reaches.
+    model, params, system = allegro_hand.grasp_system(x.dtype, dev)
+    nq = model.num_positions
+    scene = allegro_hand.build(x.dtype, dev, with_ball=True)[2]
+    data, _ = sap.assemble(model, params, scene, x[:, :nq], x[:, nq:],
+                           torch.zeros_like(x[:, nq:]), allegro_hand.H,
+                           joint_limits=allegro_hand.limits(n, x.dtype, dev))
+    slack = (allegro_hand.H**2 * (allegro_hand.PD_GAINS[2] + 1.0)
+             * torch.maximum(data.R_lim[:, :n], data.R_lim[:, n:]))
+    q = x[:, :n]
+    over = torch.maximum(allegro_hand.Q_LO - q, q - allegro_hand.Q_HI) - slack
+    worst = float(over.max())
+    check(worst <= 0.0, f"22c: a joint is past its limit by {worst:.3e} beyond the slack")
+    grasp = allegro_hand.grasp_checks(x)
+    held = {k: int(grasp[k].sum()) for k in ("closed", "caged")}
+    check(all(c == GRASP_LANES for c in held.values()), f"22c: lanes closed and caged {held}")
+    got = x[:GRASP_CHECK_LANES].double().cpu().numpy()
+    d = float(np.max(np.abs(got - np.asarray(ref["f32"]))))
+    bound = max(RIGID_FLOOR_FACTOR * ref["floor"], RIGID_MIN_BOUND)
+    check(d <= bound, f"22c: the first lanes {d:.3e} off the JAX package's float32 run")
+    ball_z = x[:, nq - 1]
+    print(f"[grasp lanes] allegro PD grasp, {GRASP_LANES} lanes x {GRASP_LANE_STEPS} steps in one "
+          f"call, alone: {wall!r} s, {GRASP_LANES * GRASP_LANE_STEPS / wall!r} lane-steps/s, "
+          f"{wall / GRASP_LANE_STEPS * 1e3!r} ms a step; peak {peak / 2**20:.1f} MiB above the "
+          f"inputs; finite {finite}; worst joint past its stop beyond the slack {worst:.3e} "
+          f"(<= 0); lanes closed {held['closed']}, caged {held['caged']} of {GRASP_LANES} "
+          f"(finger mean {float(q.mean(-1).min()):.3f}-{float(q.mean(-1).max()):.3f} rad); "
+          f"ball z {float(ball_z.min()):.4f}-{float(ball_z.max()):.4f} m; first "
+          f"{GRASP_CHECK_LANES} lanes max |card - JAX CPU float32| {d:.3e} (<= {bound:.3e}) "
+          f"[{card}]")
+    return x, targets
+
+
+def grasp_profile(torch, x, targets, card):
+    """22d: per step of 22c, sap.assemble and sap.newton as read off the
+    device timeline."""
+    from drake_tpu_torch.examples import allegro_hand
+    from drake_tpu_torch.systems.simulator import simulate_discrete
+
+    _, params, system = allegro_hand.grasp_system(x.dtype, x.device)
+
+    def run():
+        with torch.no_grad():
+            simulate_discrete(system, params, x, targets, steps=RIGID_PROFILE_STEPS)
+
+    profile_layers(torch, run, RIGID_PROFILE_STEPS, RIGID_LAYERS, RIGID_LAYERS,
+                   f"allegro grasp L={GRASP_LANES}", "step", card)
+
+
+def rigid_phase(torch, mk, dev, card, profile, demos=None, beside=None):
+    """Phase 22 (22a-22c, and 22d with `profile`), with 22b's processes
+    `demos` (started here if None) and, if given, phase 19's process
+    `beside`, whose output is read before 22c so that 22c runs alone;
+    returns the kernels' launches in it (none: no kernel lies on this path)
+    and phase 19's."""
+    mk.reset_launch_counts()
+    t = [time.perf_counter()]
+    failed = []
+    demos = rigid_demos_start() if demos is None else demos
+    acrobot = {}
+    # Each part runs even if an earlier one failed; the phase fails at its end.
+    for part in ("22a", "19", "22b"):
+        try:
+            if part == "22a":
+                rigid_parity(torch, dev, card)
+            elif part == "19" and beside is not None:
+                acrobot = background_output(beside[0]["19"], "phase 19")
+            elif part == "22b":
+                rigid_demos(demos, card)
+        except SmokeFailure as e:
+            print(f"[rigid (phase 22)] FAIL: {e}")
+            failed.append(str(e))
+        t.append(time.perf_counter())
+    check(not failed, f"phase 22: {failed}")
+    x, targets = grasp_phase(torch, dev, card)
+    t.append(time.perf_counter())
+    launches = dict(mk.LAUNCHES)
+    if profile:
+        grasp_profile(torch, x, targets, card)
+        t.append(time.perf_counter())
+    del x, targets
+    torch.cuda.empty_cache()
+    print("[rigid (phase 22)] seconds of host wall of 22a, the wait for phase 19, the wait "
+          "for 22b, 22c" + (", 22d" if profile else "")
+          + ": " + json.dumps([round(b - a, 1) for a, b in zip(t, t[1:])]))
+    return launches, acrobot
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -3791,13 +4400,16 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
+    if "--rigid-demo" in argv:  # a process of phase 22b: its demo's readings as JSON
+        torch.backends.cuda.matmul.allow_tf32 = False
+        name = argv[argv.index("--rigid-demo") + 1]
+        print(json.dumps(rigid_demo(name, torch.device("cuda", 0), torch)))
+        return 0
     from drake_tpu_torch import bench
     from drake_tpu_torch.benchmarks import (bench_coupled_mpc, bench_coupled_world,
                                             bench_dircol_f32, bench_quadrotor_mpc, paddle_blob)
-    from drake_tpu_torch.control import lqr, mpc, mppi
-    from drake_tpu_torch.examples import (acrobot_lqr_estimator, acrobot_spong,
-                                          acrobot_spong_optimize, acrobot_swingup, cart_pole_lqr,
-                                          mpm_bagging, mpm_cloth_demo, pendulum_dircol)
+    from drake_tpu_torch.control import mpc, mppi
+    from drake_tpu_torch.examples import mpm_bagging, mpm_cloth_demo, pendulum_dircol
     from drake_tpu_torch.mpm import cloth, coupling, grid_contact, tiles
     from drake_tpu_torch.mpm import solver as mpm
     from drake_tpu_torch.ops import _build
@@ -3812,6 +4424,13 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
+    if "--acrobot-only" in argv:  # phase 19 in a process of its own: its launches as JSON
+        t0 = time.perf_counter()
+        by_path = acrobot_phase(torch, mk, dev, card, "--profile" in argv)
+        print(f"[acrobot (phase 19)] {time.perf_counter() - t0!r} s of host wall in a process "
+              f"of its own [{card}]")
+        print(json.dumps(by_path))
+        return 0
     print(card)  # the card's name and power limit, as nvidia-smi prints them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
@@ -3820,6 +4439,9 @@ def main(argv) -> int:
         return 0
     if "--systems-only" in argv:  # phase 21 alone, with no result line
         systems_phase(torch, mk, dev, card, "--profile" in argv)
+        return 0
+    if "--contact-only" in argv:  # phase 22 alone, with no result line
+        rigid_phase(torch, mk, dev, card, "--profile" in argv)
         return 0
 
     phase_start["1"] = time.perf_counter()
@@ -4051,6 +4673,12 @@ def main(argv) -> int:
             check(counts["g2p_block"] > 0, f"g2p_block was never launched by {path}")
 
     phase_start["17"] = time.perf_counter()
+    # Phase 19 and 22b's demos run in processes of their own beside phases
+    # 17-22a: these phases time no kernel and are host-bound, and 22c runs
+    # alone after them.
+    beside = in_background({"19": ("--acrobot-only",) + (("--profile",) if "--profile" in argv
+                                                          else ())})
+    demos = rigid_demos_start()
     # ---- 17. the quadrotor obstacle MPC (config 3) ---------------------------
     torch.cuda.empty_cache()
     quad_parity(torch, bench_quadrotor_mpc, ilqr, dev, card)
@@ -4078,18 +4706,6 @@ def main(argv) -> int:
           "'highest' after phases 17-18")
     torch.cuda.empty_cache()
 
-    phase_start["19"] = time.perf_counter()
-    # ---- 19. config 2 (the acrobot swing-up) and the LQR family -------------
-    lqr_parity(torch, dev, card)
-    by_path["acrobot swing-up float64 (phase 19b)"], swingup = swingup_phase(
-        torch, acrobot_swingup, mk, dev, card)
-    by_path.update(family_phase(torch, (cart_pole_lqr, acrobot_spong, acrobot_lqr_estimator,
-                                        acrobot_spong_optimize), mk, dev, card))
-    if "--profile" in argv:
-        swingup_profile(torch, acrobot_swingup, ilqr, lqr, swingup, dev, card)
-    del swingup
-    torch.cuda.empty_cache()
-
     phase_start["20"] = time.perf_counter()
     # ---- 20. the optimization layer: MathematicalProgram and its back ends --
     by_path["optimization layer (phase 20)"] = opt_phase(torch, mk, dev, card,
@@ -4100,6 +4716,14 @@ def main(argv) -> int:
     # ---- 21. continuous-time and hybrid simulation, the three demos ---------
     by_path["continuous and hybrid simulation (phase 21)"] = systems_phase(
         torch, mk, dev, card, "--profile" in argv)
+
+    phase_start["22"] = time.perf_counter()
+    # ---- 22. the discrete plant's constraints and the rigid-contact demos ---
+    # (19. config 2, the acrobot swing-up, and the LQR family: its process's
+    # lines are printed here, when it has ended.)
+    launches_22, acrobot = rigid_phase(torch, mk, dev, card, "--profile" in argv, demos, beside)
+    by_path.update(acrobot)
+    by_path["discrete plant constraints and rigid-contact demos (phase 22)"] = launches_22
 
     ends = list(phase_start.values())[1:] + [time.perf_counter()]
     print("[phases] seconds of host wall: " + json.dumps(

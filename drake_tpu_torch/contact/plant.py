@@ -6,10 +6,8 @@ The PyTorch counterpart of ``drake_tpu/contact/plant.py``: one function
 
 assembles the SAP problem at (q, v), solves it, and advances the positions
 symplectically, q_{t+1} = q + h N(q) v_{t+1}, with quaternions advanced by the
-exponential map.  ``x`` and ``u`` carry the lanes of a batch in their leading
-dimensions.  The options of ``make_discrete_system`` (actuated joints
-other than every revolute and prismatic one, joint limits, couplers,
-ball/distance/weld constraints, PD joints) are not ported yet (ROADMAP.md).
+exponential map (ball joints too; planar joints in their rotated frame).
+``x`` and ``u`` carry the lanes of a batch in their leading dimensions.
 
 The continuous-time plant with compliant point contact
 (``contact_forces_continuous``, ``make_continuous_contact_system``) is here
@@ -26,9 +24,12 @@ from drake_tpu_torch.geometry.scene import CollisionScene, contact_frame
 from drake_tpu_torch.math import rotations as rot
 from drake_tpu_torch.multibody import kinematics as kin
 from drake_tpu_torch.multibody.model import (
+    BALL,
     FLOATING,
+    PLANAR,
     PRISMATIC,
     REVOLUTE,
+    SCREW,
     MultibodyModel,
     MultibodyParams,
 )
@@ -48,7 +49,18 @@ def advance_positions(model: MultibodyModel, params, q, v, h):
             v_B = v[..., vo + 3 : vo + 6]
             xyz_next = q[..., qo + 4 : qo + 7] + h * (R_JB @ v_B.unsqueeze(-1)).squeeze(-1)
             parts += [quat_next, xyz_next]
-        elif jt in (REVOLUTE, PRISMATIC):
+        elif jt == BALL:
+            quat = rot.quat_normalize(q[..., qo : qo + 4])
+            parts.append(rot.quat_integrate(quat, v[..., vo : vo + 3], h))
+        elif jt == PLANAR:
+            # Child-frame rates rotated into the joint frame at the old angle.
+            th = q[..., qo + 2]
+            c, s = torch.cos(th), torch.sin(th)
+            vx, vy, wz = v[..., vo], v[..., vo + 1], v[..., vo + 2]
+            parts.append(torch.stack([q[..., qo] + h * (c * vx - s * vy),
+                                      q[..., qo + 1] + h * (s * vx + c * vy),
+                                      th + h * wz], dim=-1))
+        elif jt in (REVOLUTE, PRISMATIC, SCREW):
             parts.append(q[..., qo : qo + 1] + h * v[..., vo : vo + 1])
     return torch.cat(parts, dim=-1)
 
@@ -58,6 +70,7 @@ def make_discrete_system(
     params: MultibodyParams,
     scene: CollisionScene,
     time_step: float,
+    actuated_joints=None,
     sap_params: sap.SapParameters = sap.SapParameters(),
     joint_limits=None,
     couplers=None,
@@ -66,35 +79,49 @@ def make_discrete_system(
     weld_constraints=None,
     pd_joints=None,
 ) -> DiscreteSystem:
-    """Discrete plant with SAP contact; x = [q; v], u = the efforts of the
-    revolute and prismatic joints (the reference's default actuation)."""
-    for name, arg in (("joint_limits", joint_limits), ("couplers", couplers),
-                      ("ball_constraints", ball_constraints),
-                      ("distance_constraints", distance_constraints),
-                      ("weld_constraints", weld_constraints), ("pd_joints", pd_joints)):
-        if arg is not None:
-            raise NotImplementedError(
-                f"make_discrete_system({name}=...) is not ported yet (ROADMAP.md, slice 2 left-outs)")
+    """Discrete plant with SAP contact; x = [q; v].
+
+    u: the efforts of the actuated joints (by default every revolute and
+    prismatic joint without a PD servo), then the desired positions of the
+    ``pd_joints`` ((joint, Kp, Kd, effort_limit), ...: implicit
+    effort-limited PD servos solved inside SAP).  ``joint_limits``,
+    ``couplers`` and the ball, distance and weld constraints go to
+    ``sap.assemble`` as they are."""
     nq = model.num_positions
     nv = model.num_velocities
     h = time_step
-    act = [i for i, jt in enumerate(model.joint_types) if jt in (REVOLUTE, PRISMATIC)]
-    act_v_offsets = [model.v_offsets[i] for i in act]
+    pd_joints = tuple(pd_joints or ())
+    pd_names = {spec[0] for spec in pd_joints}
+    if actuated_joints is None:
+        act = [i for i, jt in enumerate(model.joint_types)
+               if jt in (REVOLUTE, PRISMATIC) and model.joint_names[i] not in pd_names]
+    else:
+        act = [model.joint_names.index(n) for n in actuated_joints]
     nu = len(act)
+    npd = len(pd_joints)
     # tau = B u with B the (nv, nu) selection of the actuated dofs, made once
     # here: indexing with host lists inside g would copy them to the card on
     # every step.
     B = torch.zeros((nv, nu), dtype=params.mass.dtype, device=params.mass.device)
-    B[act_v_offsets, list(range(nu))] = 1.0
+    for k, i in enumerate(act):
+        B[model.v_offsets[i], k] += 1.0
 
     def g(p: MultibodyParams, x, u, t=0.0):
         q, v = x[..., :nq], x[..., nq:]
-        tau = u @ B.to(device=x.device, dtype=x.dtype).T
-        data, _ = sap.assemble(model, p, scene, q, v, tau, h, sap_params)
+        tau = u[..., :nu] @ B.to(device=x.device, dtype=x.dtype).T
+        pd = None
+        if npd:
+            zero = torch.zeros_like(u[..., nu : nu + npd])
+            pd = (pd_joints, u[..., nu : nu + npd], zero, zero)
+        data, _ = sap.assemble(model, p, scene, q, v, tau, h, sap_params,
+                               joint_limits=joint_limits, couplers=couplers,
+                               ball_constraints=ball_constraints,
+                               distance_constraints=distance_constraints,
+                               weld_constraints=weld_constraints, pd_controllers=pd)
         v_next = sap.solve_sap(data, data.v_star, sap_params).v
         return torch.cat([advance_positions(model, p, q, v_next, h), v_next], dim=-1)
 
-    return DiscreteSystem(g=g, num_states=nq + nv, num_inputs=nu, time_step=h,
+    return DiscreteSystem(g=g, num_states=nq + nv, num_inputs=nu + npd, time_step=h,
                           default_params=params)
 
 

@@ -59,10 +59,10 @@ def build_problem(dtype=torch.float64, device=None):
     return system, problem, x0, xf
 
 
-def track(system, sol: dircol.DircolSolution, x0):
+def track(system, sol: dircol.DircolSolution, x0, steps=None):
     """Closed loop from x0 (B, nx): the solution's first-order-hold input
-    plus PD on its Hermite state, for the solution's duration.  Returns
-    (xs, us, ts) of ``simulate_controlled``."""
+    plus PD on its Hermite state, for the solution's duration (or its first
+    `steps` steps).  Returns (xs, us, ts) of ``simulate_controlled``."""
     params = system.default_params
 
     def policy(_, x, t):
@@ -70,8 +70,9 @@ def track(system, sol: dircol.DircolSolution, x0):
         x_des = dircol.reconstruct_state(sol, params, system, t)
         return u_ff + (KP * (x_des[..., 0] - x[..., 0]) + KD * (x_des[..., 1] - x[..., 1]))[..., None]
 
-    t_final = float(sol.h.max()) * (KNOTS - 1)
-    return simulator.simulate_controlled(system, params, x0, policy, int(t_final / DT_SIM), DT_SIM)
+    if steps is None:
+        steps = int(float(sol.h.max()) * (KNOTS - 1) / DT_SIM)
+    return simulator.simulate_controlled(system, params, x0, policy, steps, DT_SIM)
 
 
 def run(dtype=torch.float64, device=None, options: SqpOptions = SqpOptions()) -> dict:

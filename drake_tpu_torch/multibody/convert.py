@@ -80,3 +80,45 @@ def trajectory_to_numpy(traj) -> dict:
         else:
             out[f.name] = value
     return out
+
+
+def force_elements_from_numpy(element_set: Mapping, arrays: Mapping[str, np.ndarray],
+                              device=None, dtype: torch.dtype = None):
+    """(ForceElementSet, ForceElementParams) from ``dataclasses.asdict`` of a
+    JAX ``ForceElementSet`` and the JAX ``ForceElementParams``' fields as
+    numpy arrays (copied), as `dtype` on `device` (None: the current CUDA
+    device)."""
+    from drake_tpu_torch.multibody.force_elements import ForceElementParams, ForceElementSet
+
+    fe = ForceElementSet(**{k: tuple(tuple(x) if isinstance(x, (list, tuple)) else int(x)
+                                     for x in v) for k, v in element_set.items()})
+    return fe, from_numpy(ForceElementParams, arrays, device, dtype)
+
+
+def constraints_from_numpy(ball_constraints=(), weld_constraints=()):
+    """The ball (body_a, p_AP, body_b, p_BQ) and weld (body_a, R_AP, p_AP,
+    body_b, R_BQ, p_BQ) constraint tuples of the JAX topology (or any with
+    numpy entries) as plain Python numbers, ready for ``sap.assemble``."""
+
+    def plain(x):
+        if isinstance(x, (int, np.integer)):
+            return int(x)
+        return np.asarray(x, np.float64).tolist()
+
+    return ([tuple(plain(x) for x in c) for c in ball_constraints],
+            [tuple(plain(x) for x in c) for c in weld_constraints])
+
+
+def collision_geometry_from_fields(fields: Mapping):
+    """A port ``CollisionGeometry`` from the fields of a JAX one, its shape
+    given as ``(shape class name, {shape field: value})`` (the hydroelastic
+    fields are carried like the others)."""
+    from drake_tpu_torch.geometry import shapes
+    from drake_tpu_torch.geometry.scene import CollisionGeometry
+
+    kind, shape_fields = fields["shape"]
+    shape = getattr(shapes, kind)(**{k: (tuple(v) if isinstance(v, (list, tuple, np.ndarray))
+                                         else v) for k, v in shape_fields.items()})
+    rest = {k: (np.asarray(v, np.float64) if k in ("R_BG", "p_BG") else v)
+            for k, v in fields.items() if k != "shape"}
+    return CollisionGeometry(shape=shape, **rest)

@@ -177,3 +177,24 @@ def forward_dynamics(model, params, q, v, tau_applied, external_forces_W=None):
     M = mass_matrix(model, params, q, joints)
     C = bias_forces(model, params, q, v, external_forces_W, joints)
     return cho_solve(cholesky_or_nan(M), tau_applied - C)
+
+
+def kinetic_energy(model, params, q, v):
+    """1/2 sum_b V_b' I_b V_b over the bodies: (...,)."""
+    Vs, _ = kin.body_spatial_velocities(model, params, q, v)
+    ke = 0.0
+    for i in range(model.num_bodies):
+        V = Vs[..., i, :]
+        ke = ke + 0.5 * torch.sum(V * (V @ _spatial_inertia_body(params, i).T), dim=-1)
+    return ke
+
+
+def potential_energy(model, params, q):
+    """Gravitational potential energy of the bodies' centres of mass: (...,)."""
+    R_WB, p_WB = kin.forward_kinematics(model, params, q)
+    p_com_W = p_WB + (R_WB @ params.com.unsqueeze(-1)).squeeze(-1)
+    return -torch.sum(params.mass * (p_com_W @ params.gravity), dim=-1)
+
+
+def total_energy(model, params, q, v):
+    return kinetic_energy(model, params, q, v) + potential_energy(model, params, q)

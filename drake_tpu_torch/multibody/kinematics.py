@@ -19,13 +19,21 @@ import torch
 
 from drake_tpu_torch.math import rotations as rot
 from drake_tpu_torch.multibody.model import (
+    BALL,
     FLOATING,
+    PLANAR,
     PRISMATIC,
     REVOLUTE,
+    SCREW,
     WELD,
     MultibodyModel,
     MultibodyParams,
 )
+from drake_tpu_torch.utils.device import constant
+
+# The planar joint's motion subspace: v = [vx_B, vy_B, wz] in the child frame.
+_PLANAR_S = ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0),
+             (1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 0.0))
 
 
 class JointKinematics(NamedTuple):
@@ -64,8 +72,27 @@ def joint_transform(model: MultibodyModel, params: MultibodyParams, i: int, q) -
         R = R_PJ @ rot.quat_to_rotation(quat)
         p = p_PJ + _mv(R_PJ, q[..., qo + 4 : qo + 7])
         S = torch.eye(6, dtype=axis.dtype, device=axis.device)
-    else:  # the model refuses other joints when it is built
-        raise NotImplementedError(f"joint type {jt!r}")
+    elif jt == BALL:
+        quat = rot.quat_normalize(q[..., qo : qo + 4])
+        R = R_PJ @ rot.quat_to_rotation(quat)
+        p = p_PJ.expand(batch + (3,))
+        S = torch.eye(6, 3, dtype=axis.dtype, device=axis.device)
+    elif jt == PLANAR:
+        # Translate in the joint frame's x-y plane, rotate about its z; the
+        # velocities are child-frame rates, so S is constant.
+        ez = constant((0.0, 0.0, 1.0), axis)
+        R = R_PJ @ rot.axis_angle_to_rotation(ez, q[..., qo + 2])
+        xy0 = torch.cat([q[..., qo : qo + 2], torch.zeros_like(q[..., :1])], dim=-1)
+        p = p_PJ + _mv(R_PJ, xy0)
+        S = constant(_PLANAR_S, axis)
+    elif jt == SCREW:
+        # Rotation theta about `axis` with travel pitch * theta / (2 pi) along it.
+        lead = params.screw_pitch[i] / (2.0 * torch.pi)
+        R = R_PJ @ rot.axis_angle_to_rotation(axis, q[..., qo])
+        p = p_PJ + (lead * q[..., qo, None]) * (R_PJ @ axis)
+        S = torch.cat([axis, lead * axis])[:, None]
+    else:
+        raise ValueError(f"unknown joint type {jt!r}")
     return JointKinematics(R=R, p=p, S=S)
 
 
@@ -148,3 +175,11 @@ def world_velocity_jacobians(model, params, q, joints: Optional[list] = None):
         Js.append(J)
     J_B = torch.stack(Js, dim=-3)
     return torch.cat([R_WB @ J_B[..., :3, :], R_WB @ J_B[..., 3:, :]], dim=-2)
+
+
+def point_jacobian(J_W, p_WB, body: int, p_W):
+    """(..., 3, nv): the world velocity of the point p_W (..., 3) fixed on
+    `body`, from the world Jacobians J_W and origins p_WB of
+    world_velocity_jacobians and forward_kinematics: Jv - hat(p_W - p_WB) Jw."""
+    Jb = J_W[..., body, :, :]
+    return Jb[..., 3:, :] - rot.hat(p_W - p_WB[..., body, :]) @ Jb[..., :3, :]

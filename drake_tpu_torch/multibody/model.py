@@ -6,9 +6,9 @@ kinematics and dynamics unroll in Python; the numeric parameters live in a
 ``MultibodyParams`` of tensors shared by every lane of a batch.
 
 Joint model (Featherstone): X_{P,B}(q) = X_PJ . X_J(q), with the motion
-subspace S expressed in the child body frame.  The port carries the
-revolute, prismatic, weld and quaternion-floating joints; the others raise
-``NotImplementedError`` (ROADMAP.md, slice 5).
+subspace S expressed in the child body frame.  Joints: revolute, prismatic,
+weld, quaternion-floating, ball (quaternion), planar and screw; the builder
+expands a universal joint into two revolutes through a massless body.
 """
 
 from __future__ import annotations
@@ -27,17 +27,18 @@ REVOLUTE = "revolute"
 PRISMATIC = "prismatic"
 WELD = "weld"
 FLOATING = "floating"  # q = [qw,qx,qy,qz, x,y,z], v = [w_B; v_B]
+BALL = "ball"  # q = quaternion [w,x,y,z], v = w_B (3)
+PLANAR = "planar"  # q = [x, y, theta] in the joint frame; v = [vx_B, vy_B, wz]
+SCREW = "screw"  # q = theta about/along axis; translation = pitch*theta/(2 pi)
+UNIVERSAL = "universal"  # builder only: two revolutes through a massless body
 
-_NQ = {REVOLUTE: 1, PRISMATIC: 1, WELD: 0, FLOATING: 7}
-_NV = {REVOLUTE: 1, PRISMATIC: 1, WELD: 0, FLOATING: 6}
+_NQ = {REVOLUTE: 1, PRISMATIC: 1, WELD: 0, FLOATING: 7, BALL: 4, PLANAR: 3, SCREW: 1}
+_NV = {REVOLUTE: 1, PRISMATIC: 1, WELD: 0, FLOATING: 6, BALL: 3, PLANAR: 3, SCREW: 1}
 
 
 def _check_joint_type(joint_type: str):
     if joint_type not in _NQ:
-        raise NotImplementedError(
-            f"joint type {joint_type!r} is not ported yet: drake_tpu_torch carries "
-            "revolute, prismatic, weld and floating joints (ROADMAP.md, slice 5)"
-        )
+        raise ValueError(f"unknown joint type {joint_type!r}")
 
 
 @tensor_dataclass
@@ -52,7 +53,7 @@ class MultibodyParams:
     axis: torch.Tensor  # (nb, 3) joint axis (child frame)
     damping: torch.Tensor  # (nb,) viscous joint damping
     gravity: torch.Tensor  # (3,) gravity in world
-    screw_pitch: torch.Tensor  # (nb,) 0 for the joints ported here
+    screw_pitch: torch.Tensor  # (nb,) axial travel per revolution; 0 but for screws
     reflected_inertia: Optional[torch.Tensor] = None  # (nb,) gear^2 * rotor
 
 
@@ -95,6 +96,16 @@ class MultibodyModel:
     def body_index(self, name: str) -> int:
         return self.body_names.index(name)
 
+    def default_state(self, dtype=torch.float32, device=None):
+        """x = [q; v] at rest with identity quaternions, on `device` (None:
+        the current CUDA device, an error without one)."""
+        q = np.zeros(self.num_positions)
+        for i, jt in enumerate(self.joint_types):
+            if jt in (FLOATING, BALL):
+                q[self.q_offsets[i]] = 1.0
+        x = np.concatenate([q, np.zeros(self.num_velocities)])
+        return torch.tensor(x, dtype=dtype, device=resolve_device(device))
+
 
 class ModelBuilder:
     """Imperative builder mirroring MultibodyPlant's AddRigidBody/AddJoint."""
@@ -129,8 +140,28 @@ class ModelBuilder:
         axis: Sequence[float] = (0, 0, 1),
         damping: float = 0.0,
         joint_name: Optional[str] = None,
+        screw_pitch: float = 0.0,
+        axis2: Sequence[float] = (0, 1, 0),
+        rotor_inertia: float = 0.0,
+        gear_ratio: float = 1.0,
     ) -> int:
-        """Add a body connected to `parent` (None = world) by a joint."""
+        """Add a body connected to `parent` (None = world) by a joint.
+
+        ``joint_type="universal"``: rotation about ``axis`` in the parent
+        frame, then ``axis2`` in the child, as two revolute joints
+        ``<joint>_1`` and ``<joint>_2`` through a massless body
+        ``<name>__U`` (every motion subspace stays constant in its child
+        frame); q = [theta1, theta2].  ``gear_ratio**2 * rotor_inertia`` is
+        the joint's reflected inertia on the mass matrix's diagonal."""
+        if joint_type == UNIVERSAL:
+            base = joint_name or f"{name}_joint"
+            self.add_body(f"{name}__U", parent=parent, joint_type=REVOLUTE, mass=0.0,
+                          X_PJ_rpy=X_PJ_rpy, X_PJ_xyz=X_PJ_xyz, axis=axis, damping=damping,
+                          joint_name=base + "_1")
+            return self.add_body(name, parent=f"{name}__U", joint_type=REVOLUTE, mass=mass,
+                                 com=com, inertia_com=inertia_com, axis=axis2, damping=damping,
+                                 joint_name=base + "_2", rotor_inertia=rotor_inertia,
+                                 gear_ratio=gear_ratio)
         _check_joint_type(joint_type)
         pidx = -1 if parent is None else self._body_names.index(parent)
         idx = len(self._body_names)
@@ -150,8 +181,8 @@ class ModelBuilder:
         n = np.linalg.norm(a)
         self._axis.append(a / n if n > 0 else a)
         self._damping.append(float(damping))
-        self._screw_pitch.append(0.0)
-        self._reflected.append(0.0)
+        self._screw_pitch.append(float(screw_pitch))
+        self._reflected.append(float(gear_ratio) ** 2 * float(rotor_inertia))
         return idx
 
     def build(self, dtype=torch.float32, device=None) -> Tuple[MultibodyModel, MultibodyParams]:

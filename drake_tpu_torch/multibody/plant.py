@@ -7,10 +7,7 @@ The PyTorch counterpart of ``drake_tpu/multibody/plant.py``:
                           for floating bases)
     vdot = M(q)^-1 (B u + tau_ext - C(q, v))
 
-over the lanes in the leading dimensions of ``x`` and ``u``.  The port's
-model carries revolute, prismatic, weld and floating joints; ball, planar
-and screw joints are refused when a model is built (ROADMAP.md, slice 2
-left-outs).
+over the lanes in the leading dimensions of ``x`` and ``u``.
 """
 
 from __future__ import annotations
@@ -22,9 +19,12 @@ import torch
 from drake_tpu_torch.math import rotations as rot
 from drake_tpu_torch.multibody import dynamics as dyn
 from drake_tpu_torch.multibody.model import (
+    BALL,
     FLOATING,
+    PLANAR,
     PRISMATIC,
     REVOLUTE,
+    SCREW,
     MultibodyModel,
     MultibodyParams,
 )
@@ -42,7 +42,16 @@ def qdot_from_v(model: MultibodyModel, params: MultibodyParams, q, v):
             R_JB = rot.quat_to_rotation(quat)
             parts += [rot.quat_derivative(quat, v[..., vo : vo + 3]),
                       (R_JB @ v[..., vo + 3 : vo + 6].unsqueeze(-1)).squeeze(-1)]
-        elif jt in (REVOLUTE, PRISMATIC):
+        elif jt == BALL:
+            quat = rot.quat_normalize(q[..., qo : qo + 4])
+            parts.append(rot.quat_derivative(quat, v[..., vo : vo + 3]))
+        elif jt == PLANAR:
+            # Child-frame rates rotated back into the joint frame for [xdot, ydot].
+            th = q[..., qo + 2]
+            c, s = torch.cos(th), torch.sin(th)
+            vx, vy, wz = v[..., vo], v[..., vo + 1], v[..., vo + 2]
+            parts.append(torch.stack([c * vx - s * vy, s * vx + c * vy, wz], dim=-1))
+        elif jt in (REVOLUTE, PRISMATIC, SCREW):
             parts.append(v[..., vo : vo + 1])
     if not parts:
         return q.new_zeros(q.shape[:-1] + (0,))

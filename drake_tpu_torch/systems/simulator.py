@@ -92,15 +92,50 @@ def simulate_controlled(system: ContinuousSystem, params, x0, policy: Callable, 
             _times(t0, dt, num_steps, x0))
 
 
-def simulate_discrete(system: DiscreteSystem, params, x0, u_sequence, t0=0.0):
-    """Roll out a discrete system over an input sequence (..., N, nu)."""
+def simulate_discrete(system: DiscreteSystem, params, x0, u_sequence, t0=0.0,
+                      steps: Optional[int] = None, record: Optional[Callable] = None):
+    """Roll out a discrete system over an input sequence (..., N, nu): the
+    states (..., N+1, nx) including x0.
+
+    With ``steps`` or ``record`` the loop keeps no states: it returns (the
+    state after the last step, the records or None), where ``record(x)``
+    of the state after each step (a tensor or a tuple of them) is stacked
+    on a new leading axis.  ``u_sequence`` may then also be None (no
+    input), a tensor (..., nu) held every step, or ``callable(k, x)``; the
+    number of steps is ``steps``, else the sequence's length.  The loop is
+    eager (a converged SAP step asks the host whether a lane still runs,
+    which a CUDA graph cannot capture); the records stay on the device
+    until the end."""
+    if steps is None and record is None:
+        x, t = x0, torch.tensor(t0, dtype=x0.dtype, device=x0.device)
+        xs = [x0]
+        for k in range(u_sequence.shape[-2]):
+            x = system.g(params, x, u_sequence[..., k, :], t)
+            t = t + system.time_step
+            xs.append(x)
+        return torch.stack(xs, dim=-2)
+    if callable(u_sequence):
+        u_at = u_sequence
+    elif u_sequence is None:
+        zero = x0.new_zeros(x0.shape[:-1] + (system.num_inputs,))
+        u_at = lambda k, x: zero  # noqa: E731
+    elif steps is None:
+        steps = u_sequence.shape[-2]
+        u_at = lambda k, x: u_sequence[..., k, :]  # noqa: E731
+    else:
+        u_at = lambda k, x: u_sequence  # noqa: E731
     x, t = x0, torch.tensor(t0, dtype=x0.dtype, device=x0.device)
-    xs = [x0]
-    for k in range(u_sequence.shape[-2]):
-        x = system.g(params, x, u_sequence[..., k, :], t)
+    rows = []
+    for k in range(steps):
+        x = system.g(params, x, u_at(k, x), t)
         t = t + system.time_step
-        xs.append(x)
-    return torch.stack(xs, dim=-2)
+        if record is not None:
+            rows.append(record(x))
+    if record is None:
+        return x, None
+    if isinstance(rows[0], tuple):
+        return x, tuple(torch.stack(col) for col in zip(*rows))
+    return x, torch.stack(rows)
 
 
 def batch_simulate(system, params, x0_batch, u_batch, dt, method: str = "rk4"):

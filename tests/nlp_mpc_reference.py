@@ -3,7 +3,7 @@ phases 17b and 18c, on the port's own draws.  Run by hand, not by pytest.
 
 Phase 17b runs the quadrotor obstacle MPC (BASELINE config 3,
 benchmarks/bench_quadrotor_mpc.py: rk4 at dt 0.02, horizon 30, the RTI
-schedule, 25 MPC steps) from 4,096 initial states, and gates the lanes
+schedule, chip_smoke.py's QUAD_STEPS MPC steps) from 4,096 initial states, and gates the lanes
 progressing; phase 18c runs 32 float32 pendulum dircol solves from
 jittered straight lines (benchmarks/bench_dircol_f32.py's options) and
 gates the feasible count.  The port draws those states and guesses from
@@ -47,7 +47,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-QUAD_BATCH, QUAD_STEPS = 4096, 25
+import chip_smoke  # noqa: E402  (the depth phase 17b runs)
+
+QUAD_BATCH, QUAD_STEPS = 4096, chip_smoke.QUAD_STEPS
 DIRCOL_BATCH = 32
 FEAS_TOL = 1e-3
 

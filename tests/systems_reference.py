@@ -8,8 +8,9 @@ examples/compass_gait.py as the port's tests write them for the JAX
 package, and prints them as one JSON object (``SYSTEMS_JAX_F32`` in
 chip_smoke.py):
 
-- the bouncing ball: its 15,000 rk4 steps at h = 1e-4 and the dense output
-  at 6,001 times, the apexes, the apex ratio and the apex-to-apex time;
+- the bouncing ball: its rk4 steps at h = 1e-4 and the dense output at
+  chip_smoke.py's STEPS_BALL and BALL_QUERIES, the apexes, the apex ratio
+  and the apex-to-apex time;
 - the rimless wheel: 20 s at dt 1e-3, the strikes and the last
   post-impact speed; and over the lanes of phase 21c (the pushes drawn
   from numpy's seed 0, HYBRID_LANE_SECONDS), each lane's strikes, one
@@ -60,13 +61,16 @@ def main():
     jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, F32), jp)
     jsys = make_continuous_contact_system(jm, jp, js)
     x0 = jnp.asarray([1, 0, 0, 0, 0, 0, 0.35] + [0] * 6, F32)
-    us = jnp.zeros((15000, 0), F32)
+    import chip_smoke
+
+    steps, queries = chip_smoke.STEPS_BALL, chip_smoke.BALL_QUERIES
+    us = jnp.zeros((steps, 0), F32)
 
     @jax.jit
     def ball(x):
         xs, ts = jsim.simulate(jsys, jp, x, us, 1e-4)
         traj = jsim.dense_output(jsys, jp, xs, ts, us)
-        tq = jnp.linspace(0.0, 15000 * 1e-4, 6001)
+        tq = jnp.linspace(0.0, steps * 1e-4, queries)
         return tq, jax.vmap(lambda s: traj.value(s)[6])(tq)
 
     tq, z = (np.asarray(a) for a in ball(x0))

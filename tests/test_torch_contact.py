@@ -271,18 +271,23 @@ def test_sap_lane_with_failed_factorization_keeps_its_iterate(port_data):
 
 
 def test_unported_pairs_and_constraints_raise(contact):
-    import torch
+    """What the port still refuses: contact with a Mesh, with a MeshSdf,
+    and a MeshSdf carrying a hydroelastic patch (ROADMAP.md, the geometry
+    group); every primitive pair, hydro patch and SAP constraint is taken."""
+    import numpy as np
 
-    from drake_tpu_torch.contact import sap
     from drake_tpu_torch.geometry import shapes as sh
     from drake_tpu_torch.geometry.scene import CollisionGeometry, CollisionScene
 
-    two_spheres = [CollisionGeometry("a", 0, sh.Sphere(0.1)), CollisionGeometry("b", 1, sh.Sphere(0.1))]
+    verts = np.eye(3)
+    grid = dict(grid=np.zeros((4, 4, 4)), origin=np.zeros(3), dx=0.1)
+    ground = CollisionGeometry("ground", -1, sh.HalfSpace())
+    ball = CollisionGeometry("ball", 1, sh.Sphere(0.1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CollisionScene.build(two_spheres)
-    q, v, tau = (torch.tensor(contact[k][:1]) for k in ("q", "v", "tau"))
-    args = (contact["tm"], contact["tp"], contact["tscene"], q, v, tau, H)
+        CollisionScene.build([CollisionGeometry("m", 0, sh.Mesh(verts)), ground])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sap.assemble(*args, sap.SapParameters(contact_model="hc_lagged"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sap.assemble(*args, joint_limits=(q, q))
+        CollisionScene.build([CollisionGeometry("s", 0, sh.MeshSdf(verts, **grid)), ball])
+    with pytest.raises(NotImplementedError, match="hydroelastic patch.*ROADMAP"):
+        CollisionScene.build([CollisionGeometry("s", 0, sh.MeshSdf(verts, **grid),
+                                                hydroelastic_modulus=1e5), ground])
+    assert CollisionScene.build([CollisionGeometry("a", 0, sh.Sphere(0.1)), ball]).pairs == ((0, 1),)

@@ -242,7 +242,7 @@ def bench_data():
 def port_sap_data(data):
     from drake_tpu_torch.contact.sap import SapData
 
-    return SapData(*(t(getattr(data, f)) for f in SapData._fields))._replace(
+    return SapData(*(t(getattr(data, f)) for f in SapData._fields[:6]))._replace(
         mu=t(np.asarray(data.mu)[0]))
 
 

@@ -281,11 +281,18 @@ def test_quat_integrate_and_its_gradient_match_jax(w_scale):
 
 
 def test_unported_joint_types_raise():
+    """Every joint type of the reference is taken (the ball, planar and
+    screw joints, and the builder's universal); a type it does not know
+    raises, as the reference's kinematics does."""
     from drake_tpu_torch.multibody.model import ModelBuilder
 
     b = ModelBuilder()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.add_body("ball", parent=None, joint_type="ball", mass=1.0)
+    for jt in ("ball", "planar", "screw", "universal"):
+        b.add_body(jt, parent=None, joint_type=jt, mass=1.0)
+    assert b.build(device="cpu")[0].joint_types == (
+        "ball", "planar", "screw", "revolute", "revolute")
+    with pytest.raises(ValueError, match="unknown joint type"):
+        b.add_body("gimbal", parent=None, joint_type="gimbal", mass=1.0)
 
 
 def test_entry_points_default_to_the_card():

@@ -135,6 +135,20 @@ PORT_MODULES = (
     "drake_tpu_torch.examples.bouncing_ball",
     "drake_tpu_torch.examples.rimless_wheel",
     "drake_tpu_torch.examples.compass_gait",
+    "drake_tpu_torch.geometry.scene_graph",
+    "drake_tpu_torch.geometry.box_collision",
+    "drake_tpu_torch.multibody.force_elements",
+    "drake_tpu_torch.multibody.topology",
+    "drake_tpu_torch.examples.rod2d",
+    "drake_tpu_torch.examples.rolling_sphere",
+    "drake_tpu_torch.examples.atlas_drop",
+    "drake_tpu_torch.examples.allegro_hand",
+    "drake_tpu_torch.examples.simple_gripper",
+    "drake_tpu_torch.examples.four_bar",
+    "drake_tpu_torch.examples.strandbeest",
+    "drake_tpu_torch.examples.planar_gripper",
+    "drake_tpu_torch.examples.spatula_slip_control",
+    "drake_tpu_torch.examples.bushing_suspension",
 )
 
 
@@ -168,7 +182,9 @@ def test_collecting_port_tests_loads_no_torch():
         "test_torch_tiles_contact, test_torch_systems, test_torch_quadrotor, test_torch_dircol, "
         "test_torch_control, test_torch_acrobot, test_torch_solvers, test_torch_program, "
         "test_torch_trajectories, test_torch_hybrid, test_torch_primitives, "
-        "test_torch_continuous_contact, test_torch_bouncing_ball, test_torch_comms"
+        "test_torch_continuous_contact, test_torch_bouncing_ball, test_torch_comms, "
+        "test_torch_joints, test_torch_primitive_contact, test_torch_sap_constraints, "
+        "test_torch_force_elements, test_torch_contact_demos"
     )
     loaded = _loaded(imports, ("torch", "drake_tpu_torch", "drake_tpu", "jax"))
     assert [m for m in loaded if m.split(".")[0] in ("torch", "drake_tpu_torch")] == []
@@ -587,6 +603,93 @@ def test_solver_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         got = make(None)
         assert isinstance(got, np.ndarray) or got.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(None)
+
+
+def _contact_entry_points():
+    """name -> callable(device) returning a tensor, for the entry points of
+    the discrete plant's constraints and the rigid-contact demos (the demos'
+    run() at a depth of one step)."""
+    import torch
+
+    from drake_tpu_torch.examples import (allegro_hand, atlas_drop, bushing_suspension, four_bar,
+                                          planar_gripper, rod2d, rolling_sphere, simple_gripper,
+                                          spatula_slip_control, strandbeest)
+    from drake_tpu_torch.multibody import convert, force_elements, topology
+    from drake_tpu_torch.multibody.model import ModelBuilder
+
+    def model(device):
+        b = ModelBuilder()
+        b.add_body("ball", parent=None, joint_type="ball", mass=1.0)
+        return b.build(torch.float64, device)
+
+    def elements(device):
+        b = force_elements.ForceElementBuilder(model("cpu")[0])
+        return b.build(torch.float64, device)[1].bu_k
+
+    def graph(device):
+        g = topology.LinkGraph()
+        g.add_link("a", mass=1.0)
+        g.add_joint("j", parent=topology.WORLD, child="a")
+        return g.build(torch.float64, device)[1].mass
+
+    f64 = dict(dtype=torch.float64, verbose=False)
+    return {
+        "ModelBuilder.build ball": lambda device: model(device)[1].mass,
+        "MultibodyModel.default_state": lambda device: model("cpu")[0].default_state(
+            torch.float64, device),
+        "ForceElementBuilder.build": elements,
+        "LinkGraph.build": graph,
+        "force_elements_from_numpy": lambda device: convert.force_elements_from_numpy(
+            {"spring_bodies": [], "joint_spring_joints": [], "bushing_bodies": [],
+             "door_hinge_joints": []}, {"bu_k": np.zeros((0, 6))} | {
+                k: np.zeros((0,)) for k in ("sd_p_AP", "sd_p_BQ", "sd_free_length",
+                                            "sd_stiffness", "sd_damping", "js_stiffness",
+                                            "js_nominal", "bu_X_AF_R", "bu_X_AF_p", "bu_X_CM_R",
+                                            "bu_X_CM_p", "bu_d", "dh_cfg")}, device=device)[1].bu_k,
+        "rod2d.run": lambda device: rod2d.run(device=device, steps=1, **f64)["x_hi"],
+        "rolling_sphere.run": lambda device: rolling_sphere.run(
+            device=device, settle=1, steps=1, **f64)["point"]["x_roll"],
+        "atlas_drop.run": lambda device: atlas_drop.run(device=device, steps=1, **f64)["x"],
+        "allegro_hand.run": lambda device: allegro_hand.run(
+            device=device, load_steps=1, grasp_steps=1, **f64)["x_grasp"],
+        "simple_gripper.run": lambda device: simple_gripper.run(
+            device=device, steps=1, **f64)["hold"]["x"],
+        "four_bar.run": lambda device: four_bar.run(device=device, seconds=0.002,
+                                                    **f64)["x_constraint"],
+        "strandbeest.run": lambda device: strandbeest.run(device=device, seconds=0.002,
+                                                          **f64)["x"],
+        "planar_gripper.run": lambda device: planar_gripper.run(device=device, steps=1,
+                                                                **f64)["x"],
+        "spatula_slip_control.run": lambda device: spatula_slip_control.run(
+            device=device, steps=1, **f64)["hydro strong"]["x"],
+        "bushing_suspension.run": lambda device: bushing_suspension.run(
+            device=device, steps=2, **f64)["x"],
+    }
+
+
+CONTACT_ENTRY_POINTS = ["ModelBuilder.build ball", "MultibodyModel.default_state",
+                        "ForceElementBuilder.build", "LinkGraph.build",
+                        "force_elements_from_numpy", "rod2d.run", "rolling_sphere.run",
+                        "atlas_drop.run", "allegro_hand.run", "simple_gripper.run", "four_bar.run",
+                        "strandbeest.run", "planar_gripper.run", "spatula_slip_control.run",
+                        "bushing_suspension.run"]
+
+
+@pytest.mark.parametrize("name", CONTACT_ENTRY_POINTS)
+def test_contact_entry_points_default_to_the_card(name):
+    """With no `device` the builders of the new joints, force elements and
+    loop topology, and the rigid-contact demos, place their tensors on the
+    current CUDA device, and raise without one; with ``"cpu"`` they stay on
+    the CPU."""
+    import torch
+
+    make = _contact_entry_points()[name]
+    assert make("cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert make(None).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(None)

@@ -300,3 +300,37 @@ def test_simulate_discrete_matches_jax():
     got = tsim.simulate_discrete(td, tsys.default_params, t(x), t(us))
     close(got, ref, TOL * max(1.0, float(np.abs(ref).max())))
     assert tsim.SimulatorConfig().integration_scheme == "rk4"
+
+
+@pytest.mark.parametrize("form", ["held", "callable", "sequence", "none"])
+def test_simulate_discrete_step_forms(form):
+    """The demos' form of simulate_discrete (a held, callable, sequence or
+    absent input; a record a step) steps as the reference form does."""
+    import torch
+
+    from drake_tpu_torch.systems import base as tbase
+    from drake_tpu_torch.systems import simulator as tsim
+
+    _, tsys = quadrotor_pair()
+    td = tbase.discretize(tsys, 0.02, "rk3")
+    x, _ = quadrotor_lanes(10)
+    x = t(x)
+    u = torch.full(x.shape[:-1] + (4,), 2.0, dtype=x.dtype)
+    if form == "none":  # a system with no input: the dynamics ignore a zero-width u
+        td = tbase.DiscreteSystem(g=lambda p, xx, uu, tt: 0.5 * xx, num_states=12,
+                                  num_inputs=0, time_step=0.02)
+        u = x.new_zeros(x.shape[:-1] + (0,))
+    seq = u.unsqueeze(-2).expand(x.shape[:-1] + (6, u.shape[-1]))
+    ref = tsim.simulate_discrete(td, tsys.default_params, x, seq)
+    given = {"held": (u, 6), "callable": (lambda k, xx: seq[..., k, :], 6),
+             "sequence": (seq, None), "none": (None, 6)}[form]
+    x_end, (first, norm) = tsim.simulate_discrete(
+        td, tsys.default_params, x, given[0], steps=given[1],
+        record=lambda xx: (xx[..., 0], xx.norm(dim=-1)))
+    close(x_end, ref[..., -1, :], 0.0)
+    close(first, ref[..., 1:, 0].movedim(-1, 0), 0.0)
+    assert norm.shape == (6,) + x.shape[:-1]
+    if given[1] is not None:  # a held, callable or absent input needs its count of steps
+        x_end, none = tsim.simulate_discrete(td, tsys.default_params, x, given[0], steps=6)
+        assert none is None
+        close(x_end, ref[..., -1, :], 0.0)
